@@ -1,0 +1,408 @@
+#!/usr/bin/env python3
+"""Start the PyTorch + CUDA port (``hsip_tpu_torch``) on one GPU and check it.
+
+Run from the root of a checkout on a machine with a CUDA card::
+
+    python3 chip_smoke.py
+
+Phases, each fatal when it fails:
+
+1. the card: CUDA must be available; prints ``nvidia-smi``'s name and
+   power limit;
+2. build: compiles ``hsip_tpu_torch/csrc/*.cu`` with ``nvcc`` into
+   ``hsip_tpu_torch/build/`` (first use) and prints the build time;
+3. the band kernel against its plain PyTorch version on the card, over
+   W ∈ {1024, 1000, 250, 136}, (k, σ) ∈ {(3, 1.5), (2, 1.5), (5, 2.0),
+   (3, 3.0)} and N ∈ {1, 4096} (atol 1e-4, rtol 1e-5);
+4. the tracking-scan kernel against its plain version on the card, all
+   four detectors at M=2048, W=1024, on random profiles with planted ties
+   and on the profiles of the phase-5 recording (all nine fields equal);
+5. the slice: ``process_video_file`` with backend 'gpu' and 'device' on a
+   2048-frame 128×1024 12-bit recording and on the golden recording; the
+   launch counters must show that each run went through its kernels, and
+   the tables must equal the port's own CPU run (and the golden table);
+6. times: each kernel against its plain version at the main path's shapes
+   (CUDA events, median), and the wall clock of both backends.
+
+It prints, before the last line, a JSON object with one entry per kernel,
+and as the last line ``{"ok": true, "device": {...}}``. It exits non-zero,
+printing no result, when CUDA is unavailable or the port is not beside it.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+
+# Main-path shapes: bench.py's default recording.
+N_FRAMES, HEIGHT, WIDTH = 2048, 128, 1024
+TOL = dict(atol=1e-4, rtol=1e-5)  # the Pallas kernel's bar against jnp
+GPU = "cuda"
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def card_info():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters, repeats=5):
+    """Median over ``repeats`` of the mean CUDA-event time of ``iters`` calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / iters)
+    return statistics.median(samples)
+
+
+def band_case(rng, n, k, sigma, w):
+    """Integer-valued 12-bit bands, with a -1 prior and non-adjacent priors."""
+    import numpy as np
+
+    from hsip_tpu_torch.kernels.preprocess import band_margin
+
+    b = 2 * band_margin(k, sigma) + 1
+    band = rng.integers(0, 4096, (n, b, w), dtype=np.int16).astype(np.float32)
+    prior = np.arange(-1, n - 1, dtype=np.int32)
+    if n > 8:
+        prior[5] = -1
+        prior[7] = 2
+        prior[n - 1] = n // 3
+    return band, prior
+
+
+def check_band_kernel(dev, rng):
+    """Phase 3: returns the largest abs diff over the sweep."""
+    import torch
+
+    from hsip_tpu_torch.kernels.cuda_preprocess import (
+        band_profiles_plain,
+        cuda_band_profiles,
+    )
+
+    worst_abs = worst_rel = 0.0
+    all_equal = True
+    for k, sigma in ((3, 1.5), (2, 1.5), (5, 2.0), (3, 3.0)):
+        for w in (1024, 1000, 250, 136):
+            for n in (1, 4096):
+                band, prior = band_case(rng, n, k, sigma, w)
+                band_t = torch.from_numpy(band).to(dev)
+                prior_t = torch.from_numpy(prior).to(dev)
+                got = cuda_band_profiles(band_t, prior_t, 5.0, k, sigma)
+                want = band_profiles_plain(band_t, prior_t, 5.0, k, sigma)
+                torch.cuda.synchronize()
+                for g, r in zip(got, want):
+                    torch.testing.assert_close(g, r, **TOL)
+                    d = (g - r).abs()
+                    worst_abs = max(worst_abs, float(d.max()))
+                    worst_rel = max(worst_rel, float((d / r.abs().clamp_min(1e-30)).max()))
+                    all_equal = all_equal and bool(torch.equal(g, r))
+                del band_t, got, want
+    log(f"band kernel vs plain: 32 cases, max abs {worst_abs:.3e}, "
+        f"max rel {worst_rel:.3e}, bit-equal: {all_equal}")
+    return worst_abs
+
+
+def planted_profiles(rng, m, w):
+    """Integer-valued profiles with planted ties (equal gradient minima,
+    equal |sobel| maxima, flat peaks)."""
+    import numpy as np
+
+    sob = np.round(rng.normal(0, 30, (m, w))).astype(np.float32)
+    grad = np.round(rng.normal(0, 15, (m, w))).astype(np.float32)
+    intens = np.abs(np.round(rng.normal(40, 30, (m, w)))).astype(np.float32)
+    for j in range(m):
+        a, b = sorted(rng.choice(np.arange(12, w - 12), 2, replace=False))
+        grad[j, a] = grad[j, b] = -80.0
+        sob[j, a] = -sob[j, b] if sob[j, b] else 90.0
+        intens[j, a:a + 4] = intens[j].max()
+    return sob, grad, intens
+
+
+def scan_inputs(profiles, empty, dev):
+    """(V=1) scan tensors from map-phase profiles (tensors on ``dev``)."""
+    import numpy as np
+    import torch
+
+    return (
+        torch.from_numpy(profiles.frame_indices.astype(np.int32))[None].to(dev),
+        profiles.sobel_lines[None],
+        profiles.gradient_lines[None],
+        torch.from_numpy(np.asarray(empty, bool))[None].to(dev),
+        torch.from_numpy(profiles.has_prior)[None].to(dev),
+        profiles.intensity_lines[None],
+    )
+
+
+def check_scan_kernel(dev, rng, real_profiles, real_empty, params_for):
+    """Phase 4: all nine fields equal, four methods, two profile sets."""
+    import numpy as np
+    import torch
+
+    from hsip_tpu_torch.track.cuda_scan import cuda_tracking_scan
+    from hsip_tpu_torch.track.device_scan import METHODS, tracking_scan_plain
+
+    m, w = N_FRAMES, WIDTH
+    sob, grad, intens = (torch.from_numpy(x)[None].to(dev)
+                         for x in planted_profiles(rng, m, w))
+    empty = torch.from_numpy(rng.random((1, m)) < 0.05).to(dev)
+    prior = torch.ones((1, m), dtype=torch.bool, device=dev)
+    prior[0, 0] = False
+    fidx = torch.from_numpy(np.cumsum(rng.integers(1, 3, m)).astype(np.int32))[None].to(dev)
+    worst = 0
+    sets = {"random+ties": (fidx, sob, grad, empty, prior, intens),
+            "recording": scan_inputs(real_profiles, real_empty, dev)}
+    for label, (fi, s, g, em, hp, it) in sets.items():
+        for method in METHODS:
+            kw = dict(width=w, intensity_lines=it, **params_for(method))
+            got = cuda_tracking_scan(fi, s, g, em, hp, **kw)
+            want = tracking_scan_plain(fi, s, g, em, hp, **kw)
+            torch.cuda.synchronize()
+            for name, a, b in zip(got._fields, got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"scan kernel != plain: {label} {method} {name}")
+                diff = (a.to(torch.int64) - b.to(torch.int64)).abs()
+                worst = max(worst, int(diff.max()) if diff.numel() else 0)
+            log(f"scan kernel vs plain: {label:12s} {method:13s} 9/9 fields equal, "
+                f"{int((got.final_position >= 0).sum())} detections")
+    return float(worst)
+
+
+def write_bench_recording(directory):
+    """bench.py's recording: seed 42, the front crossing ~77% of the image."""
+    from hsip_tpu.io import CihxSpec, FlameSpec, synthesize_flame_video, write_recording
+
+    flame = FlameSpec(x0=30.0, v0_px=WIDTH / (1.3 * N_FRAMES), accel_px=0.0,
+                      ignition_frame=2, seed=42)
+    frames, positions = synthesize_flame_video(N_FRAMES, height=HEIGHT,
+                                               width=WIDTH, flame=flame)
+    spec = CihxSpec(width=WIDTH, height=HEIGHT, total_frames=N_FRAMES,
+                    record_rate=100_000, bit_depth=12)
+    return write_recording(directory, "bench-run-1-001", frames, spec=spec), positions
+
+
+def write_golden_recording(directory):
+    """The recording of tests/test_golden.py."""
+    from hsip_tpu.io import CihxSpec, FlameSpec, synthesize_flame_video, write_recording
+
+    flame = FlameSpec(x0=30.0, v0_px=8.0, accel_px=0.3, ignition_frame=3,
+                      ddt_frame=28, v_jump_px=25.0, seed=77)
+    frames, _ = synthesize_flame_video(60, height=48, width=512, flame=flame)
+    spec = CihxSpec(width=512, height=48, total_frames=60, record_rate=100_000,
+                    bit_depth=12, start_frame=-10)
+    return write_recording(directory, "golden-run-1-001", frames, spec=spec)
+
+
+def source_config(out_dir):
+    from hsip_tpu.track import FileCalibration, VideoSourceConfig
+
+    cfg = VideoSourceConfig(name="smoke", save_frame_images=False,
+                            save_stacked_sequences=False)
+    cfg.output_dir = str(out_dir)
+    cfg.file_calibrations = [
+        FileCalibration(calibration=0.000833333, position_offset=1.0159,
+                        files=["run-1-"]),
+    ]
+    return cfg
+
+
+def run_file(meta, out_dir, backend, device):
+    """One process_video_file run; (output, wall seconds, tables)."""
+    import torch
+
+    from hsip_tpu_torch.pipeline import process_video_file
+
+    t0 = time.perf_counter()
+    out = process_video_file(meta, source_config(out_dir), backend=backend,
+                             verbose=False, save_images=False, device=device)
+    if torch.device(device).type != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tables = {p.name: p.read_bytes() for p in sorted(Path(out_dir).glob("*.txt"))}
+    return out, wall, tables
+
+
+def main() -> int:
+    if not (REPO / "hsip_tpu_torch" / "csrc").is_dir() or not (REPO / "hsip_tpu").is_dir():
+        print("chip_smoke: run from the root of a checkout (hsip_tpu_torch/ "
+              "and hsip_tpu/ beside this script)", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    import numpy as np
+
+    from hsip_tpu.track import FlameDetectorConfig
+    from hsip_tpu.track.scan import MIN_SIGNAL_FRACTION
+    from hsip_tpu_torch.kernels import _build
+    from hsip_tpu_torch.kernels.cuda_preprocess import (
+        band_profiles_plain,
+        cuda_band_profiles,
+    )
+    from hsip_tpu_torch.track.cuda_scan import cuda_tracking_scan
+    from hsip_tpu_torch.track.device_scan import tracking_scan_plain
+    from hsip_tpu_torch.track.scan import compute_profiles_batched, scan_params
+
+    # ---- phase 1: the card ----
+    dev = torch.device(GPU)
+    card = card_info()
+    log(card)
+    kind = torch.cuda.get_device_name(0)
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # ---- phase 2: build ----
+    t0 = time.perf_counter()
+    _build.load_kernels()
+    log(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    for line in _build.last_build_log().splitlines():
+        if "registers" in line or "spill" in line or "entry function" in line:
+            log("  " + line.strip())
+
+    rng = np.random.default_rng(2024)
+    config = FlameDetectorConfig()
+    with tempfile.TemporaryDirectory(prefix="hsip-chip-smoke-") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        meta, truth = write_bench_recording(tmp / "rec")
+        golden_meta = write_golden_recording(tmp / "golden")
+        log(f"recordings written in {time.perf_counter() - t0:.2f} s: "
+            f"{N_FRAMES}x{HEIGHT}x{WIDTH} 12-bit and the golden one")
+
+        # ---- phase 3: band kernel vs plain ----
+        band_err = check_band_kernel(dev, rng)
+
+        # ---- phase 4: scan kernel vs plain (incl. the recording's profiles) ----
+        from hsip_tpu import open_video
+
+        with open_video(str(meta)) as video:
+            bg = float(np.max(video[0]))
+            read_packed, read_band, count_fn, depth = video.staging_paths()
+            real = compute_profiles_batched(
+                video.read_batch, len(video), video.frame_shape, bg, config,
+                chunk_size=4096, read_packed=read_packed, read_band=read_band,
+                count_fn=count_fn,
+                read_band_counts=video.band_bytes_and_counts if read_band else None,
+                band_bit_depth=depth, keep_device=True, device=dev,
+            )
+            fps = video.frame_rate
+        real_empty = real.signal_counts / real.total_pixels < MIN_SIGNAL_FRACTION
+        params_for = lambda method: scan_params(config, fps, 0.000833333, method)  # noqa: E731
+        scan_err = check_scan_kernel(dev, rng, real, real_empty, params_for)
+
+        # ---- phase 5: the slice, through the user's entry point ----
+        ref = {b: run_file(meta, tmp / f"cpu-{b}", b, "cpu") for b in ("gpu", "device")}
+        cuda_band_profiles.launches = 0
+        cuda_tracking_scan.launches = 0
+        gpu_out, gpu_first_s, gpu_tables = run_file(meta, tmp / "gpu", "gpu", GPU)
+        after_gpu = (cuda_band_profiles.launches, cuda_tracking_scan.launches)
+        dev_out, dev_first_s, dev_tables = run_file(meta, tmp / "device", "device", GPU)
+        launches = (cuda_band_profiles.launches, cuda_tracking_scan.launches)
+        log(f"staging route: {gpu_out.phase_timings['staging_route']} (gpu), "
+            f"{dev_out.phase_timings['staging_route']} (device)")
+        log(f"launches: band kernel {launches[0]}, scan kernel {launches[1]} "
+            f"(after the gpu run: {after_gpu[0]}, {after_gpu[1]})")
+        if after_gpu[0] < 1 or after_gpu[1] != 0:
+            raise AssertionError(f"gpu backend launches {after_gpu}: expected band >= 1, scan 0")
+        if launches[0] <= after_gpu[0] or launches[1] < 1:
+            raise AssertionError(f"device backend did not launch both kernels: {launches}")
+        if gpu_tables != ref["gpu"][2] or dev_tables != ref["device"][2]:
+            raise AssertionError("GPU tables differ from the port's CPU tables")
+        if gpu_tables != dev_tables or not gpu_tables:
+            raise AssertionError("gpu and device backends wrote different tables")
+        # The front moves ~0.4 px a frame, so a row lands whenever it has
+        # crossed a pixel: rows must run from ignition to the end of the
+        # recording, rightward, near the analytic front.
+        rows = gpu_out.rows
+        frames = [r[0] for r in rows]
+        pxs = [r[2] for r in rows]
+        errs = [abs(px - truth[f]) for f, _, px, _, _ in rows if np.isfinite(truth[f])]
+        med = float(np.median(errs)) if errs else float("inf")
+        log(f"recording: {len(rows)} rows over frames {frames[0] if rows else None}.."
+            f"{frames[-1] if rows else None} of {N_FRAMES}, median |px - truth| "
+            f"{med:.2f}, break: {gpu_out.break_reason}; tables byte-identical "
+            f"across gpu, device and cpu ({len(gpu_tables)} files)")
+        if (len(rows) < N_FRAMES // 10 or frames[0] > N_FRAMES // 20
+                or frames[-1] < N_FRAMES - N_FRAMES // 20
+                or any(b < a for a, b in zip(pxs, pxs[1:])) or med > 20):
+            raise AssertionError("the flame was not tracked across the recording")
+
+        golden = (REPO / "tests" / "golden" / "golden-run-1-001-flame-position.txt").read_bytes()
+        for backend, device in (("gpu", GPU), ("device", GPU), ("gpu", "cpu")):
+            _, _, tables = run_file(golden_meta, tmp / f"golden-{backend}-{device}",
+                                    backend, device)
+            if tables.get("golden-run-1-001-flame-position.txt") != golden:
+                raise AssertionError(f"golden table differs ({backend} on {device})")
+        log("golden recording: gpu (cuda), device (cuda) and gpu (cpu) tables "
+            "byte-identical to tests/golden/")
+
+        # ---- phase 6: times ----
+        n = N_FRAMES
+        band, prior = band_case(rng, n, config.morphology_kernel_size,
+                                config.gaussian_sigma, WIDTH)
+        band_t, prior_t = torch.from_numpy(band).to(dev), torch.from_numpy(prior).to(dev)
+        k, sigma = config.morphology_kernel_size, config.gaussian_sigma
+        band_ms = cuda_ms(lambda: cuda_band_profiles(band_t, prior_t, 5.0, k, sigma), 20)
+        band_plain_ms = cuda_ms(lambda: band_profiles_plain(band_t, prior_t, 5.0, k, sigma), 5)
+        fi, s, g, em, hp, it = scan_inputs(real, real_empty, dev)
+        kw = dict(width=WIDTH, intensity_lines=it, **params_for("combined"))
+        scan_ms = cuda_ms(lambda: cuda_tracking_scan(fi, s, g, em, hp, **kw), 5)
+        scan_plain_ms = cuda_ms(lambda: tracking_scan_plain(fi, s, g, em, hp, **kw), 1, repeats=3)
+        log(f"[{card}] band kernel, N={n} B={band.shape[1]} W={WIDTH}: "
+            f"{band_ms:.4f} ms; plain PyTorch {band_plain_ms:.4f} ms")
+        log(f"[{card}] scan kernel, combined, M={n} W={WIDTH}: {scan_ms:.4f} ms; "
+            f"plain PyTorch {scan_plain_ms:.4f} ms")
+        for backend, first in (("gpu", gpu_first_s), ("device", dev_first_s)):
+            runs = sorted((run_file(meta, tmp / f"t-{backend}-{i}", backend, GPU)[:2]
+                           for i in range(3)), key=lambda r: r[1])
+            out, wall = runs[1]  # the median run
+            log(f"[{card}] backend={backend}: {N_FRAMES / wall:.1f} frames/s "
+                f"(median of 3 warm runs, {wall:.4f} s: map {out.phase_timings['map_s']} s, "
+                f"scan {out.phase_timings['scan_s']} s; first run {first:.4f} s)")
+        del band_t, prior_t
+
+    print(json.dumps({"kernels": [
+        {"name": "band_profiles", "route": "cuda",
+         "source": "hsip_tpu_torch/csrc/band_profiles.cu",
+         "replaces": "hsip_tpu/kernels/pallas_preprocess.py:131",
+         "launches": launches[0], "max_abs_err": band_err,
+         "ms": round(band_ms, 6), "plain_ms": round(band_plain_ms, 6)},
+        {"name": "tracking_scan", "route": "cuda",
+         "source": "hsip_tpu_torch/csrc/tracking_scan.cu",
+         "replaces": "hsip_tpu/track/pallas_scan.py:571",
+         "launches": launches[1], "max_abs_err": scan_err,
+         "ms": round(scan_ms, 6), "plain_ms": round(scan_plain_ms, 6)},
+    ]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,3 @@
+from .backend import resolve_device
+
+__all__ = ["resolve_device"]
