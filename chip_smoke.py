@@ -15,14 +15,19 @@ Phases, each fatal when it fails:
    W ∈ {1024, 1000, 250, 136}, (k, σ) ∈ {(3, 1.5), (2, 1.5), (5, 2.0),
    (3, 3.0)} and N ∈ {1, 4096} (atol 1e-4, rtol 1e-5);
 4. the tracking-scan kernel against its plain version on the card, all
-   four detectors at M=2048, W=1024, on random profiles with planted ties
-   and on the profiles of the phase-5 recording (all nine fields equal);
+   four detectors at M=2048, W=1024, on random profiles with planted ties,
+   on the profiles of the phase-5 recording, and on four videos at once
+   (V=4, per-video calibration, frame rate and displacement cap): all
+   nine fields equal;
 5. the slice: ``process_video_file`` with backend 'gpu' and 'device' on a
    2048-frame 128×1024 12-bit recording and on the golden recording; the
    launch counters must show that each run went through its kernels, and
    the tables must equal the port's own CPU run (and the golden table);
 6. times: each kernel against its plain version at the main path's shapes
-   (CUDA events, median), and the wall clock of both backends.
+   (CUDA events, median; the scan at V=1, V=8 and about one video per
+   SM, with the rate of its whole-row copies there), each beside its bound
+   (bytes moved over the memory rate, or operations over the float32 rate,
+   whichever is larger), and the wall clock of both backends.
 
 It prints, before the last line, a JSON object with one entry per kernel,
 and as the last line ``{"ok": true, "device": {...}}``. It exits non-zero,
@@ -157,7 +162,7 @@ def scan_inputs(profiles, empty, dev):
 
 
 def check_scan_kernel(dev, rng, real_profiles, real_empty, params_for):
-    """Phase 4: all nine fields equal, four methods, two profile sets."""
+    """Phase 4: all nine fields equal, four methods, three profile sets."""
     import numpy as np
     import torch
 
@@ -173,10 +178,14 @@ def check_scan_kernel(dev, rng, real_profiles, real_empty, params_for):
     fidx = torch.from_numpy(np.cumsum(rng.integers(1, 3, m)).astype(np.int32))[None].to(dev)
     worst = 0
     sets = {"random+ties": (fidx, sob, grad, empty, prior, intens),
-            "recording": scan_inputs(real_profiles, real_empty, dev)}
+            "recording": scan_inputs(real_profiles, real_empty, dev),
+            "4 videos": four_videos(rng, real_profiles, real_empty, dev)}
     for label, (fi, s, g, em, hp, it) in sets.items():
         for method in METHODS:
-            kw = dict(width=w, intensity_lines=it, **params_for(method))
+            params = params_for(method)
+            if label == "4 videos":
+                params = four_video_params(params)
+            kw = dict(width=w, intensity_lines=it, **params)
             got = cuda_tracking_scan(fi, s, g, em, hp, **kw)
             want = tracking_scan_plain(fi, s, g, em, hp, **kw)
             torch.cuda.synchronize()
@@ -190,9 +199,90 @@ def check_scan_kernel(dev, rng, real_profiles, real_empty, params_for):
     return float(worst)
 
 
+def four_video_params(params, copies=1):
+    """Scan parameters of the V = 4 case: per-video calibration, frame rate
+    and displacement cap, the first video's those of ``params`` (the
+    recording's own); the four tiled ``copies`` times."""
+    import numpy as np
+
+    def per_video(first, rest, dtype):
+        return np.tile(np.array([first, *rest], dtype), copies)
+
+    return dict(
+        params,
+        calibration=per_video(params["calibration"], (0.001, 0.0005, 0.002), np.float32),
+        frame_rate=per_video(params["frame_rate"], (50_000, 20_000, 80_000), np.float32),
+        max_displacement_px=per_video(params["max_displacement_px"], (5, 8, 40), np.int32),
+    )
+
+
+def four_videos(rng, real_profiles, real_empty, dev):
+    """(V=4) scan tensors: the recording's profiles and three planted sets,
+    each with its own frame indices, empty frames and priors."""
+    import numpy as np
+    import torch
+
+    m, w = N_FRAMES, WIDTH
+    real = [t[0].cpu().numpy() for t in scan_inputs(real_profiles, real_empty, dev)]
+    sets = [real]
+    for _ in range(3):
+        sob, grad, intens = planted_profiles(rng, m, w)
+        fidx = np.cumsum(rng.integers(1, 4, m)).astype(np.int32)
+        empty = rng.random(m) < 0.05
+        prior = np.ones(m, bool)
+        prior[0] = False
+        sets.append([fidx, sob, grad, empty, prior, intens])
+    return tuple(torch.from_numpy(np.stack([s[i] for s in sets])).to(dev)
+                 for i in range(6))
+
+
+# ---- bounds: the least time the card could take for the same work ----
+# NVIDIA H100 SXM, published peaks: HBM3 3.35 TB/s; float32 outside the
+# tensor cores 67 TFLOP/s.
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
+
+
+def bound(bytes_moved, ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_S, ops / FP32_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def band_bound(n, b, w, k, ntaps):
+    """Band kernel: the (N, B, W) band and (N,) priors read once, three
+    (N, W) lines written once. Operations per band element: subtract and
+    threshold (2), separable erosion and dilation (4(k-1) compares), the
+    two-pass Gaussian (2(2*ntaps-1)); per output column Sobel and gradient
+    (7)."""
+    bytes_moved = 4 * (n * b * w + n + 3 * n * w + ntaps)
+    ops = n * b * w * (2 + 4 * (k - 1) + 2 * (2 * ntaps - 1)) + 7 * n * w
+    return bound(bytes_moved, ops)
+
+
+def scan_bound(res, width, method):
+    """Scan kernel: each input it needs read once, each output written
+    once. A step needs only its window's columns of the rows the method
+    reads, so the rows count over this run's windows (the outputs' search
+    bounds), as the operations do: about 10 per window column for
+    'combined' (two rows), 6 for the named methods. Then the per-frame
+    indices and flags and the per-video parameters."""
+    import torch
+
+    v, m = res.final_position.shape
+    nrows = 2 if method == "combined" else 1
+    lo = res.search_start.clamp(0, width).to(torch.int64)
+    hi = res.search_end.clamp(0, width).to(torch.int64)
+    cols = int((hi - lo).clamp_min(0).sum())
+    bytes_moved = (4 * nrows * cols + 6 * v * m            # window rows, index, flags
+                   + 14 * v * m + 16 * v + 12 * v)         # outputs, latches, params
+    return bound(bytes_moved, cols * (10 if nrows == 2 else 6))
+
+
 def write_bench_recording(directory):
     """bench.py's recording: seed 42, the front crossing ~77% of the image."""
-    from hsip_tpu.io import CihxSpec, FlameSpec, synthesize_flame_video, write_recording
+    from hsip_tpu_torch.io import CihxSpec, FlameSpec, synthesize_flame_video, write_recording
 
     flame = FlameSpec(x0=30.0, v0_px=WIDTH / (1.3 * N_FRAMES), accel_px=0.0,
                       ignition_frame=2, seed=42)
@@ -205,7 +295,7 @@ def write_bench_recording(directory):
 
 def write_golden_recording(directory):
     """The recording of tests/test_golden.py."""
-    from hsip_tpu.io import CihxSpec, FlameSpec, synthesize_flame_video, write_recording
+    from hsip_tpu_torch.io import CihxSpec, FlameSpec, synthesize_flame_video, write_recording
 
     flame = FlameSpec(x0=30.0, v0_px=8.0, accel_px=0.3, ignition_frame=3,
                       ddt_frame=28, v_jump_px=25.0, seed=77)
@@ -216,7 +306,7 @@ def write_golden_recording(directory):
 
 
 def source_config(out_dir):
-    from hsip_tpu.track import FileCalibration, VideoSourceConfig
+    from hsip_tpu_torch.track.config import FileCalibration, VideoSourceConfig
 
     cfg = VideoSourceConfig(name="smoke", save_frame_images=False,
                             save_stacked_sequences=False)
@@ -245,9 +335,9 @@ def run_file(meta, out_dir, backend, device):
 
 
 def main() -> int:
-    if not (REPO / "hsip_tpu_torch" / "csrc").is_dir() or not (REPO / "hsip_tpu").is_dir():
+    if not (REPO / "hsip_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from the root of a checkout (hsip_tpu_torch/ "
-              "and hsip_tpu/ beside this script)", file=sys.stderr)
+              "beside this script)", file=sys.stderr)
         return 2
     import torch
 
@@ -257,15 +347,17 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     import numpy as np
 
-    from hsip_tpu.track import FlameDetectorConfig
-    from hsip_tpu.track.scan import MIN_SIGNAL_FRACTION
+    from hsip_tpu_torch import open_video
     from hsip_tpu_torch.kernels import _build
     from hsip_tpu_torch.kernels.cuda_preprocess import (
         band_profiles_plain,
         cuda_band_profiles,
     )
+    from hsip_tpu_torch.kernels.preprocess import gaussian_taps
+    from hsip_tpu_torch.track.config import FlameDetectorConfig
     from hsip_tpu_torch.track.cuda_scan import cuda_tracking_scan
     from hsip_tpu_torch.track.device_scan import tracking_scan_plain
+    from hsip_tpu_torch.track.host_scan import MIN_SIGNAL_FRACTION
     from hsip_tpu_torch.track.scan import compute_profiles_batched, scan_params
 
     # ---- phase 1: the card ----
@@ -298,8 +390,6 @@ def main() -> int:
         band_err = check_band_kernel(dev, rng)
 
         # ---- phase 4: scan kernel vs plain (incl. the recording's profiles) ----
-        from hsip_tpu import open_video
-
         with open_video(str(meta)) as video:
             bg = float(np.max(video[0]))
             read_packed, read_band, count_fn, depth = video.staging_paths()
@@ -369,14 +459,47 @@ def main() -> int:
         k, sigma = config.morphology_kernel_size, config.gaussian_sigma
         band_ms = cuda_ms(lambda: cuda_band_profiles(band_t, prior_t, 5.0, k, sigma), 20)
         band_plain_ms = cuda_ms(lambda: band_profiles_plain(band_t, prior_t, 5.0, k, sigma), 5)
+        band_bound_ms, band_bound_by = band_bound(
+            n, band.shape[1], WIDTH, k, len(gaussian_taps(sigma)))
         fi, s, g, em, hp, it = scan_inputs(real, real_empty, dev)
         kw = dict(width=WIDTH, intensity_lines=it, **params_for("combined"))
+        scan_res = cuda_tracking_scan(fi, s, g, em, hp, **kw)
+        scan_bound_ms, scan_bound_by = scan_bound(scan_res, WIDTH, "combined")
         scan_ms = cuda_ms(lambda: cuda_tracking_scan(fi, s, g, em, hp, **kw), 5)
         scan_plain_ms = cuda_ms(lambda: tracking_scan_plain(fi, s, g, em, hp, **kw), 1, repeats=3)
+        # V = 8: the V = 4 case twice over, per-video parameters and all.
+        f4 = four_videos(rng, real, real_empty, dev)
+        f8 = tuple(torch.cat([t, t]).contiguous() for t in f4)
+        kw8 = dict(width=WIDTH, intensity_lines=f8[5],
+                   **four_video_params(params_for("combined"), copies=2))
+        scan8_res = cuda_tracking_scan(*f8[:5], **kw8)
+        scan8_bound_ms, _ = scan_bound(scan8_res, WIDTH, "combined")
+        scan8_ms = cuda_ms(lambda: cuda_tracking_scan(*f8[:5], **kw8), 5)
+        # About a video on every SM (the --library case): the ring's copies
+        # of whole rows then move 16.8 MB a video per launch.
+        copies = torch.cuda.get_device_properties(0).multi_processor_count // 4
+        vs = 4 * copies
+        fs = tuple(t.repeat((copies,) + (1,) * (t.dim() - 1)).contiguous() for t in f4)
+        kws = dict(width=WIDTH, intensity_lines=fs[5],
+                   **four_video_params(params_for("combined"), copies=copies))
+        scans_res = cuda_tracking_scan(*fs[:5], **kws)
+        scans_bound_ms, _ = scan_bound(scans_res, WIDTH, "combined")
+        scans_ms = cuda_ms(lambda: cuda_tracking_scan(*fs[:5], **kws), 5)
+        scans_rate = 2 * 4 * vs * n * WIDTH / (scans_ms * 1e-3)  # whole rows, B/s
+        del fs, scans_res
         log(f"[{card}] band kernel, N={n} B={band.shape[1]} W={WIDTH}: "
-            f"{band_ms:.4f} ms; plain PyTorch {band_plain_ms:.4f} ms")
-        log(f"[{card}] scan kernel, combined, M={n} W={WIDTH}: {scan_ms:.4f} ms; "
-            f"plain PyTorch {scan_plain_ms:.4f} ms")
+            f"{band_ms:.4f} ms; plain PyTorch {band_plain_ms:.4f} ms; bound "
+            f"{band_bound_ms:.4f} ms ({band_bound_by}), "
+            f"{band_bound_ms / band_ms:.2%} of it")
+        log(f"[{card}] scan kernel, combined, V=1 M={n} W={WIDTH}: {scan_ms:.4f} ms "
+            f"({scan_ms * 1e3 / n:.3f} us a step); plain PyTorch {scan_plain_ms:.4f} ms; "
+            f"bound {scan_bound_ms:.4f} ms ({scan_bound_by}), "
+            f"{scan_bound_ms / scan_ms:.2%} of it")
+        log(f"[{card}] scan kernel, combined, V=8 M={n} W={WIDTH}: {scan8_ms:.4f} ms "
+            f"({scan8_ms * 1e3 / n:.3f} us a step); bound {scan8_bound_ms:.4f} ms")
+        log(f"[{card}] scan kernel, combined, V={vs} M={n} W={WIDTH}: {scans_ms:.4f} ms "
+            f"({scans_ms * 1e3 / n:.3f} us a step); bound {scans_bound_ms:.4f} ms; "
+            f"whole-row copies {scans_rate / 1e12:.3f} TB/s")
         for backend, first in (("gpu", gpu_first_s), ("device", dev_first_s)):
             runs = sorted((run_file(meta, tmp / f"t-{backend}-{i}", backend, GPU)[:2]
                            for i in range(3)), key=lambda r: r[1])
@@ -384,19 +507,28 @@ def main() -> int:
             log(f"[{card}] backend={backend}: {N_FRAMES / wall:.1f} frames/s "
                 f"(median of 3 warm runs, {wall:.4f} s: map {out.phase_timings['map_s']} s, "
                 f"scan {out.phase_timings['scan_s']} s; first run {first:.4f} s)")
-        del band_t, prior_t
+        del band_t, prior_t, f4, f8
 
+    # No single PyTorch call computes either kernel's function: library_ms
+    # is null for both.
     print(json.dumps({"kernels": [
         {"name": "band_profiles", "route": "cuda",
          "source": "hsip_tpu_torch/csrc/band_profiles.cu",
          "replaces": "hsip_tpu/kernels/pallas_preprocess.py:131",
          "launches": launches[0], "max_abs_err": band_err,
-         "ms": round(band_ms, 6), "plain_ms": round(band_plain_ms, 6)},
+         "ms": band_ms, "plain_ms": band_plain_ms,
+         "bound_ms": band_bound_ms, "bound_by": band_bound_by,
+         "share_of_bound": band_bound_ms / band_ms, "library_ms": None},
         {"name": "tracking_scan", "route": "cuda",
          "source": "hsip_tpu_torch/csrc/tracking_scan.cu",
          "replaces": "hsip_tpu/track/pallas_scan.py:571",
          "launches": launches[1], "max_abs_err": scan_err,
-         "ms": round(scan_ms, 6), "plain_ms": round(scan_plain_ms, 6)},
+         "ms": scan_ms, "plain_ms": scan_plain_ms,
+         "bound_ms": scan_bound_ms, "bound_by": scan_bound_by,
+         "share_of_bound": scan_bound_ms / scan_ms, "library_ms": None,
+         "ms_v8": scan8_ms, "bound_ms_v8": scan8_bound_ms,
+         "v_per_sm": vs, "ms_v_per_sm": scans_ms, "bound_ms_v_per_sm": scans_bound_ms,
+         "row_copy_tb_s_v_per_sm": scans_rate / 1e12},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -1,11 +1,13 @@
 """Build the CUDA kernels from ``csrc/`` with ``nvcc`` and load them.
 
-The sources have a plain C interface (no PyTorch headers), so one ``nvcc``
-call builds them in seconds into ``hsip_tpu_torch/build/``; the library is
-loaded with :mod:`ctypes`. A hash of the sources and flags names the build,
-so an edited source or flag rebuilds on the next first use. Nothing here
-runs at import time: the CPU tests import every module on machines that
-have no ``nvcc``.
+The sources have a plain C interface (no PyTorch headers). Each
+``csrc/<name>.cu`` builds into its own ``build/lib<name>.so``, all ``nvcc``
+processes started together, so the build takes as long as the slowest
+source; the libraries are loaded with :mod:`ctypes`. A hash of each source,
+the shared headers and the flags names its build, so an edited source or
+flag rebuilds that library on the next first use. Nothing here runs at
+import time: the CPU tests import every module on machines that have no
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import types
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "build_kernels", "load_kernels", "last_build_log"]
@@ -23,7 +26,6 @@ __all__ = ["NVCC_FLAGS", "build_kernels", "load_kernels", "last_build_log"]
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-LIB_NAME = "libhsip_tpu_torch_kernels.so"
 
 # -fmad=false: no a*b+c contraction into FMA. The band chain's tap sums,
 # the tracker's f32 velocity and the TwoSum differences must round each
@@ -47,6 +49,8 @@ _SIGNATURES = {
     # search_window, exit_margin, method, min_grad, sobel_frac, ddt_jump,
     # method_frac, stream
     "hsip_tracking_scan": [_P] * 17 + [_I] * 7 + [_F] * 4 + [_P],
+    # method, w -> frames in a ring group (0: too wide)
+    "hsip_tracking_scan_ring_depth": [_I, _I],
 }
 
 _lock = threading.Lock()
@@ -64,51 +68,74 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (CUDA toolkit needed to build the kernels)")
 
 
-def _digest() -> str:
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
+def _digest(source: Path) -> str:
     h = hashlib.sha256()
-    for path in sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh")):
+    for path in [source] + sorted(SRC_DIR.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()
 
 
+def _lib_path(source: Path) -> Path:
+    return BUILD_DIR / f"lib{source.stem}.so"
+
+
 def build_kernels() -> str:
-    """Compile ``csrc/*.cu`` into ``build/`` unless an up-to-date build is
-    there. Returns the compiler's output ("" when nothing was built)."""
-    digest = _digest()
-    lib = BUILD_DIR / LIB_NAME
-    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
-    if lib.exists() and stamp.exists() \
-            and stamp.read_text().strip() == digest:
-        return ""
+    """Compile each out-of-date ``csrc/*.cu`` into ``build/``, all in
+    parallel. Returns the compilers' output ("" when nothing was built)."""
+    jobs = []  # (source, lib, stamp, digest, tmp, cmd, process)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(SRC_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: another process never loads half a file
-    stamp.write_text(digest + "\n")
-    return proc.stdout + proc.stderr
+    for src in _sources():
+        digest = _digest(src)
+        lib = _lib_path(src)
+        stamp = lib.with_name(lib.name + ".sha256")
+        if lib.exists() and stamp.exists() and stamp.read_text().strip() == digest:
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, lib, stamp, digest, tmp, cmd, proc))
+    logs, failures = [], []
+    for src, lib, stamp, digest, tmp, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+            continue
+        os.replace(tmp, lib)  # atomic: another process never loads half a file
+        stamp.write_text(digest + "\n")
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return "".join(logs)
 
 
-def load_kernels() -> ctypes.CDLL:
-    """The kernel library, built on first use; one load per process."""
+def load_kernels() -> types.SimpleNamespace:
+    """The kernels' C entry points, built on first use; one load per
+    process. Attributes are the functions of ``_SIGNATURES``."""
     global _lib, _last_build_log
     with _lock:
         if _lib is None:
             _last_build_log = build_kernels()
-            lib = ctypes.CDLL(str(BUILD_DIR / LIB_NAME))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            fns = {}
+            for src in _sources():
+                lib = ctypes.CDLL(str(_lib_path(src)))
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(lib, name, None)
+                    if fn is not None:
+                        fn.argtypes = argtypes
+                        fn.restype = ctypes.c_int
+                        fns[name] = fn
+            missing = sorted(set(_SIGNATURES) - set(fns))
+            if missing:
+                raise RuntimeError(f"kernel entry points not found: {missing}")
+            _lib = types.SimpleNamespace(**fns)
         return _lib
 
 

@@ -67,7 +67,7 @@ def _check_band_exactness(k: int, center: int, margin: int, n: int) -> None:
             f"even morphology kernel (k={k}) with a folding centerline band "
             f"(margin {margin} at row {center} of {n}) is not exactly "
             f"representable by the band kernels; use the float64 host ops "
-            f"(hsip_tpu.kernels.reference) for this geometry"
+            f"(hsip_tpu_torch.kernels.reference) for this geometry"
         )
 
 
@@ -82,9 +82,9 @@ def reflect_indices(center: int, margin: int, n: int) -> np.ndarray:
 
 def gaussian_taps(sigma: float, truncate: float = 4.0) -> np.ndarray:
     """Normalized Gaussian taps: the host reference's kernel in float32
-    (delegates to :func:`hsip_tpu.kernels.reference.gaussian_kernel1d`, so
-    the tap radius cannot drift from :func:`band_margin`)."""
-    from hsip_tpu.kernels.reference import gaussian_kernel1d
+    (delegates to :func:`.reference.gaussian_kernel1d`, so the tap radius
+    cannot drift from :func:`band_margin`)."""
+    from .reference import gaussian_kernel1d
 
     return gaussian_kernel1d(sigma, truncate).astype(np.float32)
 

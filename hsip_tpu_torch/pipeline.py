@@ -1,34 +1,117 @@
 """Per-file pipeline: track one recording and write its result tables.
 
 Counterpart of :func:`hsip_tpu.pipeline.process_video_file`. The table
-writer, the exact float64 backend and the figure renderer are reused from
-:mod:`hsip_tpu` by import; the map phase and the device scan run on a
+writer (:func:`write_position_results`, :func:`_write_ddt_split_tables`),
+the exact float64 backend (:func:`_track_video_exact`) and
+:func:`_warn_unmatched_calibration` are copies of the JAX package's, so the
+tables are byte-identical; the map phase and the device scan run on a
 torch ``device``.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
-from hsip_tpu import open_video
-from hsip_tpu.pipeline import (
-    _track_video_exact,
-    _warn_unmatched_calibration,
-    _write_ddt_split_tables,
-)
-from hsip_tpu.track.config import FlameDetectorConfig, VideoSourceConfig
-from hsip_tpu.track.scan import TrackingOutput
-from hsip_tpu.video import SpatialCalibration
-
+from . import open_video
+from .kernels.reference import is_empty_frame, subtract_scalar_background
+from .track.config import FlameDetectorConfig, VideoSourceConfig
+from .track.host_scan import MIN_SIGNAL_FRACTION, NOISE_THRESHOLD_FLOOR, TrackingOutput
 from .track.scan import track_video
+from .track.tracker import FlameDetector
 from .utils.backend import resolve_device
+from .video import SpatialCalibration
 
-__all__ = ["process_video_file", "BACKENDS"]
+__all__ = ["process_video_file", "write_position_results", "BACKENDS",
+           "RESULT_COLUMNS"]
 
 BACKENDS = ("gpu", "device", "exact")
+
+RESULT_COLUMNS = [
+    "#Frame",
+    "Time_s",
+    "Position_px",
+    "Position_m",
+    "Vel_Backward1",
+    "Vel_Backward2",
+    "Vel_Central",
+]
+
+_HEADER_LINES = [
+    "# Flame Position and Velocity Data",
+    "#",
+    "# Velocity Extraction Methods:",
+    "#   Vel_Backward1: First-order backward difference",
+    "#                  v_n = (x_n - x_{n-1}) / dt",
+    "#                  Evaluates velocity at current time step",
+    "#",
+    "#   Vel_Backward2: Second-order backward difference",
+    "#                  v_n = (3*x_n - 4*x_{n-1} + x_{n-2}) / (2*dt)",
+    "#                  Higher accuracy at current time, requires 3 points",
+    "#",
+    "#   Vel_Central:   Second-order central difference",
+    "#                  v_{n-1} = (x_n - x_{n-2}) / (2*dt)",
+    "#                  Most accurate, but evaluates at PRIOR time step",
+    "#",
+]
+
+
+
+def write_position_results(data: List[Tuple], filepath, label: str = "") -> Path:
+    """Write a results table: documented header + space-delimited rows.
+
+    ``data`` rows are (frame, time_s, pos_px, pos_m, v1, v2, vc); velocity
+    entries may be None (written as empty fields).
+    """
+    filepath = Path(filepath)
+    with open(filepath, "w") as f:
+        for line in _HEADER_LINES:
+            f.write(line + "\n")
+        f.write(" ".join(RESULT_COLUMNS) + "\n")
+        for f_idx, t_s, pixel_pos, p_m, v1, v2, vc in data:
+            row = [
+                str(f_idx),
+                f"{t_s:.9f}",
+                str(pixel_pos),
+                f"{p_m:.9f}",
+                f"{v1:.3f}" if v1 is not None else "",
+                f"{v2:.3f}" if v2 is not None else "",
+                f"{vc:.3f}" if vc is not None else "",
+            ]
+            f.write(" ".join(row) + "\n")
+    if label:
+        print(f"  {label}: {filepath} ({len(data)} points)")
+    return filepath
+
+
+def _write_ddt_split_tables(
+    output: TrackingOutput, output_dir: Path, stem: str, verbose: bool = True
+) -> dict:
+    """All / pre-DDT / post-DDT tables for one video's tracking output."""
+    merged = output.merged_rows()
+    all_data = [(f, t, px, m, v1, v2, vc) for f, t, px, m, v1, v2, vc, _ in merged]
+    pre = [(f, t, px, m, v1, v2, vc) for f, t, px, m, v1, v2, vc, p in merged if not p]
+    post = [(f, t, px, m, v1, v2, vc) for f, t, px, m, v1, v2, vc, p in merged if p]
+
+    paths = {}
+    paths["all"] = write_position_results(
+        all_data, output_dir / f"{stem}-flame-position.txt",
+        "All results" if verbose else "",
+    )
+    if pre:
+        paths["pre_ddt"] = write_position_results(
+            pre, output_dir / f"{stem}-flame-position-pre-DDT.txt",
+            "Pre-DDT" if verbose else "",
+        )
+    if post:
+        paths["post_ddt"] = write_position_results(
+            post, output_dir / f"{stem}-flame-position-post-DDT.txt",
+            "Post-DDT" if verbose else "",
+        )
+    return paths
+
 
 
 def process_video_file(
@@ -111,7 +194,7 @@ def process_video_file(
 
         if (write_outputs and frames_output_dir is not None
                 and config.save_stacked_sequences):
-            from hsip_tpu import viz
+            from . import viz
 
             total = len(video)
             n_display = min(15, total)
@@ -190,7 +273,7 @@ def process_video_file(
                 print(f"  *** DDT DETECTED at frame {output.tracker.ddt_frame} ***")
 
         if viz_tasks:
-            from hsip_tpu import viz
+            from . import viz
 
             paths = viz.render_diagnostics_parallel(
                 str(cihx_file),
@@ -216,3 +299,100 @@ def process_video_file(
         return output
     finally:
         video.close()
+
+
+def _track_video_exact(
+    video,
+    detector_config: FlameDetectorConfig,
+    calibration: float,
+    position_offset: float,
+    config: VideoSourceConfig,
+    background_scalar: float,
+    on_result=None,
+    progress=None,
+) -> TrackingOutput:
+    """Bit-exact anchor: the reference's serial frame loop, float64 host ops.
+
+    Loop semantics parity: ``scripts/process_videos.py:1441-1527``
+    (including its per-50-frame ``progress`` cadence, ``:1524-1527``).
+    """
+    detector = FlameDetector(
+        detector_config, video.frame_rate, calibration, keep_results=False,
+        detection_method=config.detection_method,
+        use_frame_diff=config.use_frame_diff,
+    )
+    time_fn = video.get_absolute_time if config.use_absolute_time else video.get_time
+    skip = set(config.skip_frames)
+
+    rows: List[Tuple] = []
+    empty_count = 0
+    break_frame = None
+    break_reason = None
+    noise_thresh = max(NOISE_THRESHOLD_FLOOR, background_scalar * 0.5)
+
+    for frame_idx in range(len(video)):
+        if frame_idx in skip:
+            continue
+        if progress is not None and frame_idx and frame_idx % 50 == 0:
+            progress(frame_idx, len(video))
+        frame = video[frame_idx]
+        time_s = time_fn(frame_idx)
+        frame_subtracted = subtract_scalar_background(frame, background_scalar)
+
+        if is_empty_frame(frame_subtracted, noise_thresh, MIN_SIGNAL_FRACTION):
+            empty_count += 1
+            detector.update_prior_frame(frame_subtracted, frame_idx)
+            continue
+
+        result = detector.detect(frame, frame_idx, background_scalar)
+        if on_result is not None:
+            on_result(result, detector.tracker)
+
+        flame_position = result.final_position
+        velocity = detector.last_velocity
+
+        if (
+            flame_position is not None
+            and flame_position >= video.width - detector_config.exit_margin_px
+        ):
+            detector.clear_last_central_difference()
+            break_frame, break_reason = frame_idx, "exit"
+            break
+
+        prev_v1, _latest = detector.tracker.last_two_v1()
+        if velocity is not None and prev_v1 is not None and prev_v1 > 100:
+            if (prev_v1 - velocity) / prev_v1 > 0.5:
+                detector.clear_last_central_difference()
+                break_frame, break_reason = frame_idx, "velocity_drop"
+                break
+
+        if flame_position is not None:
+            pos_m = flame_position * calibration + position_offset
+            is_post = detector.ddt_detected and frame_idx >= detector.ddt_frame
+            rows.append((frame_idx, time_s, flame_position, pos_m, is_post))
+
+    return TrackingOutput(
+        rows=rows,
+        tracker=detector.tracker,
+        empty_frame_count=empty_count,
+        break_frame=break_frame,
+        break_reason=break_reason,
+        total_frames=len(video),
+    )
+
+
+def _warn_unmatched_calibration(config, filename: str) -> None:
+    """Warn when file_calibrations exist but none matches this recording.
+
+    Almost always a config mistake (e.g. an "A:B" range pattern that
+    compares the LAST filename integer and never matches): say so instead
+    of silently producing tables in the wrong units.
+    """
+    if config.file_calibrations and not config.has_calibration_for_file(
+        filename
+    ):
+        cal, off = config.get_calibration_for_file(filename)
+        print(
+            f"Warning: no file_calibration entry matches {filename}; "
+            f"using source default ({cal} m/px, offset {off} m)"
+        )

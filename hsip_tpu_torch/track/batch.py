@@ -10,8 +10,8 @@ decides them.
 
 from __future__ import annotations
 
-from hsip_tpu.track.scan import TrackingOutput
-from hsip_tpu.track.velocity import (
+from .host_scan import TrackingOutput
+from .velocity import (
     ddt_frame_from_velocities,
     iter_velocity_entries,
     velocities_from_positions,

@@ -1,8 +1,10 @@
 """The tracking-scan kernel (CUDA, ``csrc/tracking_scan.cu``).
 
 Replaces :func:`hsip_tpu.track.pallas_scan.pallas_tracking_scan_batched`:
-the tracker state machine for V videos of M frames in one launch, one
-block per video, all four detectors. Same arguments as
+the tracker state machine for V videos of M frames in one launch, one block
+of two warps per video (the position chain in one, every output in the
+other), the profile rows copied ahead of use into a shared-memory ring of
+two groups of up to 8 frames, all four detectors. Same arguments as
 :func:`~hsip_tpu_torch.track.device_scan.tracking_scan_plain`, its plain
 version, to whose outputs it must be equal in every field. It takes CUDA
 tensors only and never falls back.
@@ -13,9 +15,37 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .device_scan import METHODS, DeviceScanResult, _per_video
+from .device_scan import METHODS, DeviceScanResult
 
-__all__ = ["cuda_tracking_scan"]
+__all__ = ["cuda_tracking_scan", "ring_depth"]
+
+
+def ring_depth(method: str, width: int) -> int:
+    """Frames in one of the kernel's two ring groups (8, 4, 2 or 1), as its
+    launcher chooses them; 0 when two frames' rows exceed shared memory.
+    Asks the built kernel library, so it needs ``nvcc``."""
+    from ..kernels._build import load_kernels
+
+    return load_kernels().hsip_tracking_scan_ring_depth(METHODS.index(method), int(width))
+
+
+def _per_video_params(calibration, frame_rate, max_displacement_px, v, dev):
+    """The per-video (V,) calibration and frame rate (float32) and
+    displacement cap (int32) on the device: one pinned host buffer and one
+    copy that does not wait for the stream, as a copy from pageable memory
+    would."""
+    host = torch.empty((3, v), dtype=torch.int32, pin_memory=True)
+    rows = host.numpy()
+    for row, name, x, dtype in ((0, "calibration", calibration, np.float32),
+                                (1, "frame_rate", frame_rate, np.float32),
+                                (2, "max_displacement_px", max_displacement_px,
+                                 np.int32)):
+        arr = np.asarray(x, dtype=dtype).reshape(-1)
+        if arr.size not in (1, v):
+            raise ValueError(f"{name} must be a scalar or have shape ({v},)")
+        rows[row] = np.broadcast_to(arr, (v,)).astype(dtype).view(np.int32)
+    params = host.to(dev, non_blocking=True)
+    return params[0].view(torch.float32), params[1].view(torch.float32), params[2]
 
 
 def _check(t, name, shape, dtype, device):
@@ -70,6 +100,9 @@ def cuda_tracking_scan(
         raise ValueError(f"width {width} != profile width {w}")
     if v == 0 or m == 0:
         raise ValueError("empty scan (callers handle zero-size batches)")
+    if ring_depth(method, w) == 0:
+        raise ValueError(f"width {w}: two frames' rows exceed the kernel's "
+                         f"shared memory")
     _check(prof0, "profile lines", (v, m, w), torch.float32, dev)
     prof1 = None
     if method == "combined":
@@ -78,13 +111,8 @@ def cuda_tracking_scan(
     _check(frame_indices, "frame_indices", (v, m), torch.int32, dev)
     _check(empty, "empty", (v, m), torch.bool, dev)
     _check(has_prior, "has_prior", (v, m), torch.bool, dev)
-    cal = _per_video(calibration, v, np.float32, dev)
-    fr = _per_video(frame_rate, v, np.float32, dev)
-    md = _per_video(max_displacement_px, v, np.int32, dev)
-    for name, t in (("calibration", cal), ("frame_rate", fr),
-                    ("max_displacement_px", md)):
-        if t.shape != (v,):
-            raise ValueError(f"{name} must be a scalar or have shape ({v},)")
+    cal, fr, md = _per_video_params(calibration, frame_rate, max_displacement_px,
+                                    v, dev)
 
     def step_out(dtype):
         return torch.empty((v, m), dtype=dtype, device=dev)

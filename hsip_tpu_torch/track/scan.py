@@ -5,8 +5,8 @@ Counterpart of :mod:`hsip_tpu.track.scan`. The map phase
 device — only the packed centerline band when the native codec can gather
 it and count the empty-frame pixels on the host — decodes there and runs
 the band chain (the CUDA band kernel on a GPU). The scan then runs either
-on the host in float64 (:func:`hsip_tpu.track.scan.run_tracking_scan`,
-reused as is) or on the device (:func:`run_tracking_scan_device`, the CUDA
+on the host in float64 (:func:`.host_scan.run_tracking_scan`, the copy of
+the JAX package's host scan) or on the device (:func:`run_tracking_scan_device`, the CUDA
 tracking-scan kernel on a GPU); in both cases the tables come from the
 float64 host code, so they are byte-identical across backends.
 """
@@ -21,18 +21,6 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from hsip_tpu.track.config import FlameDetectorConfig
-from hsip_tpu.track.scan import (
-    MIN_SIGNAL_FRACTION,
-    NOISE_THRESHOLD_FLOOR,
-    FrameProfiles,
-    TrackingOutput,
-    _compute_profiles_host_exact,
-    run_tracking_scan,
-)
-from hsip_tpu.track.tracker import FlameTracker
-from hsip_tpu.utils.profiling import StageTimes
-
 from ..kernels.preprocess import (
     band_folds,
     band_margin,
@@ -41,9 +29,20 @@ from ..kernels.preprocess import (
 )
 from ..kernels.unpack import packed_band_profiles, packed_centerline_profiles
 from ..utils.backend import resolve_device
+from ..utils.profiling import StageTimes
 from .batch import ScanHistory, build_device_scan_output
+from .config import FlameDetectorConfig
 from .cuda_scan import cuda_tracking_scan
 from .device_scan import tracking_scan_plain
+from .host_scan import (
+    MIN_SIGNAL_FRACTION,
+    NOISE_THRESHOLD_FLOOR,
+    FrameProfiles,
+    TrackingOutput,
+    _compute_profiles_host_exact,
+    run_tracking_scan,
+)
+from .tracker import FlameTracker
 
 __all__ = [
     "MapProfiles",

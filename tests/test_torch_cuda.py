@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card (marker ``cuda``; they skip without one).
 
-This file imports neither jax nor the JAX package's device code, so it
-runs on a machine with a card and no JAX, without the suite's conftest:
+This file imports neither jax nor the JAX package, so it runs on a machine
+with a card and no ``hsip_tpu``, without the suite's conftest:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
@@ -16,12 +16,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from hsip_tpu.track import FileCalibration, FlameDetectorConfig, VideoSourceConfig  # noqa: E402
 from hsip_tpu_torch.kernels.cuda_preprocess import (  # noqa: E402
     band_profiles_plain,
     cuda_band_profiles,
 )
 from hsip_tpu_torch.kernels.preprocess import band_margin  # noqa: E402
+from hsip_tpu_torch.track.config import (  # noqa: E402
+    FileCalibration,
+    FlameDetectorConfig,
+    VideoSourceConfig,
+)
 from hsip_tpu_torch.track.cuda_scan import cuda_tracking_scan  # noqa: E402
 from hsip_tpu_torch.track.device_scan import METHODS, tracking_scan_plain  # noqa: E402
 from hsip_tpu_torch.track.scan import scan_params  # noqa: E402
@@ -77,10 +81,158 @@ def test_scan_kernel_matches_plain(method):
         assert torch.equal(a, b), name
 
 
+def _assert_scan_equal(dev, fidx, sob, grad, empty, prior, intens, width, **params):
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in
+         (fidx, sob, grad, empty, prior, intens)]
+    kw = dict(width=width, intensity_lines=t[5], **params)
+    got = cuda_tracking_scan(*t[:5], **kw)
+    want = tracking_scan_plain(*t[:5], **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(got._fields, got, want):
+        assert torch.equal(a, b), name
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+def test_scan_kernel_four_videos_per_video_params(method):
+    """V = 4 different profile sets with per-video calibration, frame rate
+    and displacement cap, on a ring-aligned width (TMA bulk copies) and an
+    odd one (4-byte cp.async copies)."""
+    dev = _cuda()
+    rng = np.random.default_rng(40 + METHODS.index(method))
+    for w in (1024, 1001):
+        v, m = 4, 300
+        sob = np.round(rng.normal(0, 30, (v, m, w))).astype(np.float32)
+        grad = np.round(rng.normal(0, 15, (v, m, w))).astype(np.float32)
+        intens = np.abs(np.round(rng.normal(40, 30, (v, m, w)))).astype(np.float32)
+        for i in range(v):  # a front moving right at a different speed each
+            for j in range(m):
+                x = min(w - 20, 30 + (i + 1) * j)
+                grad[i, j, x] = -120.0
+                sob[i, j, x] = 400.0
+                intens[i, j, :x] = 200.0
+        fidx = np.cumsum(rng.integers(1, 3, (v, m)), axis=1).astype(np.int32)
+        empty = rng.random((v, m)) < 0.05
+        prior = np.ones((v, m), bool)
+        prior[:, 0] = False
+        params = scan_params(FlameDetectorConfig(), 100_000.0, 0.001, method)
+        params.update(calibration=np.array([0.001, 0.0005, 0.002, 0.0008], np.float32),
+                      frame_rate=np.array([100_000, 50_000, 20_000, 80_000], np.float32),
+                      max_displacement_px=np.array([3, 5, 8, 40], np.int32))
+        got = _assert_scan_equal(dev, fidx, sob, grad, empty, prior, intens, w, **params)
+        assert int((got.final_position >= 0).sum()) > v * m // 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,w,depth", [
+    ("combined", 2048, 4), ("combined", 2050, 4), ("combined", 4096, 2),
+    ("combined", 8192, 1), ("threshold", 4096, 4), ("gradient", 8000, 2),
+    ("half_maximum", 16384, 1),
+])
+def test_scan_kernel_shallow_rings(method, w, depth):
+    """Rows too wide for groups of 8 frames: the launcher's groups of 4, 2
+    and 1 (TMA bulk copies, and 4-byte cp.async at W=2050), over M frames
+    not a multiple of the group, at V=2 with per-video parameters."""
+    from hsip_tpu_torch.track.cuda_scan import ring_depth
+
+    dev = _cuda()
+    assert ring_depth(method, w) == depth
+    rng = np.random.default_rng(w + METHODS.index(method))
+    v, m = 2, 203
+    sob = np.round(rng.normal(0, 30, (v, m, w))).astype(np.float32)
+    grad = np.round(rng.normal(0, 15, (v, m, w))).astype(np.float32)
+    intens = np.abs(np.round(rng.normal(40, 30, (v, m, w)))).astype(np.float32)
+    for i in range(v):  # a front moving right, 6 or 9 px a step
+        for j in range(m):
+            x = min(w - 1, 40 + (i + 2) * 3 * j)
+            grad[i, j, x] = -120.0
+            sob[i, j, x] = 400.0
+            intens[i, j, :x] = 200.0
+    fidx = np.cumsum(rng.integers(1, 3, (v, m)), axis=1).astype(np.int32)
+    empty = rng.random((v, m)) < 0.05
+    prior = np.ones((v, m), bool)
+    prior[:, 0] = False
+    params = scan_params(FlameDetectorConfig(), 100_000.0, 0.001, method)
+    params.update(calibration=np.array([0.001, 0.0005], np.float32),
+                  frame_rate=np.array([100_000, 50_000], np.float32),
+                  max_displacement_px=np.array([6, 12], np.int32))
+    got = _assert_scan_equal(dev, fidx, sob, grad, empty, prior, intens, w, **params)
+    assert int((got.final_position >= 0).sum()) > v * m // 4
+
+
+@pytest.mark.cuda
+def test_scan_kernel_refuses_rows_past_shared_memory():
+    """Two frames of 'combined' rows at W=15000 exceed a block's shared
+    memory: the wrapper raises, and never runs the plain version."""
+    dev = _cuda()
+    v, m, w = 1, 4, 15000
+    lines = torch.zeros((v, m, w), dtype=torch.float32, device=dev)
+    flags = torch.zeros((v, m), dtype=torch.bool, device=dev)
+    fidx = torch.arange(m, dtype=torch.int32, device=dev)[None]
+    kw = scan_params(FlameDetectorConfig(), 100_000.0, 0.001, "combined")
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_tracking_scan(fidx, lines, lines, flags, flags, width=w, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge_margin", [0, 10, 37])
+@pytest.mark.parametrize("method", METHODS)
+def test_scan_kernel_windows_at_the_edge_margins(method, edge_margin):
+    """Windows that start at edge_margin (no history yet: frames with no
+    signal) and end at W - edge_margin (a front running into the right
+    margin, then single-column windows)."""
+    dev = _cuda()
+    rng = np.random.default_rng(60 + edge_margin)
+    v, m, w = 1, 400, 1000
+    sob = np.zeros((v, m, w), np.float32)
+    grad = np.zeros((v, m, w), np.float32)
+    intens = np.full((v, m, w), 3.0, np.float32)
+    for j in range(120, m):  # nothing to detect before frame 120
+        x = min(w - 1, edge_margin + (j - 120) * 9)
+        grad[0, j, x] = -90.0
+        sob[0, j, x] = 300.0
+        intens[0, j, :x + 1] = 150.0 + rng.integers(0, 3, x + 1)
+    fidx = np.arange(m, dtype=np.int32)[None]
+    empty = np.zeros((v, m), bool)
+    prior = np.ones((v, m), bool)
+    prior[:, 0] = False
+    params = scan_params(FlameDetectorConfig(edge_margin_px=edge_margin,
+                                             exit_margin_px=0),
+                         100_000.0, 0.001, method)
+    got = _assert_scan_equal(dev, fidx, sob, grad, empty, prior, intens, w, **params)
+    s0, s1 = got.search_start.cpu().numpy()[0], got.search_end.cpu().numpy()[0]
+    assert s0[0] == edge_margin and s1[0] == w - edge_margin
+    assert (s1 == w - edge_margin).sum() > 150
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1024, 998])
+def test_scan_kernel_threshold_peak_at_window_end(w):
+    """Ramps rising to the right: every window's peak is its last column,
+    so the first column below the level is the closed-form one past the
+    window."""
+    dev = _cuda()
+    rng = np.random.default_rng(w)
+    v, m = 2, 500
+    steps = rng.integers(0, 3, (v, m, w))
+    steps[:, :, ::5] = 0  # plateaus: tied peaks
+    intens = (np.cumsum(steps, axis=2) + 20).astype(np.float32)
+    zeros = np.zeros((v, m, w), np.float32)
+    fidx = np.tile(np.arange(m, dtype=np.int32), (v, 1))
+    empty = rng.random((v, m)) < 0.05
+    prior = np.ones((v, m), bool)
+    params = scan_params(FlameDetectorConfig(), 100_000.0, 0.001, "threshold")
+    got = _assert_scan_equal(dev, fidx, zeros, zeros, empty, prior, intens, w, **params)
+    finals = got.final_position.cpu().numpy()
+    ends = np.minimum(got.search_end.cpu().numpy(), w) - 1
+    assert ((finals == ends) & (finals >= 0)).sum() > v * m // 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("backend", ["gpu", "device"])
 def test_golden_table_on_the_card(tmp_path, backend):
-    from hsip_tpu.io import CihxSpec, FlameSpec, synthesize_flame_video, write_recording
+    from hsip_tpu_torch.io import CihxSpec, FlameSpec, synthesize_flame_video, write_recording
     from hsip_tpu_torch.pipeline import process_video_file
 
     _cuda()

@@ -1,0 +1,451 @@
+"""The port's copies of the JAX package's host modules, held against their
+originals.
+
+``hsip_tpu_torch`` keeps its own copy of every host module it uses (the
+MRAW codec, CIHX parsing, synthetic recordings, video objects, the float64
+host ops and tracker, FITPACK, velocities, the host scan, the table writer,
+``StageTimes`` and the figures). The same numpy-seeded inputs go through
+each ``hsip_tpu`` function and its copy; the results must be equal (bytes,
+arrays and rows, no tolerance).
+"""
+
+import dataclasses
+import filecmp
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+import hsip_tpu  # noqa: E402
+import hsip_tpu_torch  # noqa: E402
+from hsip_tpu import _native as jax_native  # noqa: E402
+from hsip_tpu import io as jax_io  # noqa: E402
+from hsip_tpu import pipeline as jax_pipeline  # noqa: E402
+from hsip_tpu.kernels import reference as jax_ref  # noqa: E402
+from hsip_tpu.track import detectors as jax_det  # noqa: E402
+from hsip_tpu.track import fitpack as jax_fitpack  # noqa: E402
+from hsip_tpu.track import scan as jax_scan  # noqa: E402
+from hsip_tpu.track import velocity as jax_vel  # noqa: E402
+from hsip_tpu.track.config import (  # noqa: E402
+    FileCalibration as JaxFileCalibration,
+)
+from hsip_tpu.track.config import VideoSourceConfig as JaxSourceConfig  # noqa: E402
+from hsip_tpu.utils.profiling import StageTimes as JaxStageTimes  # noqa: E402
+from hsip_tpu_torch import _native as port_native  # noqa: E402
+from hsip_tpu_torch import io as port_io  # noqa: E402
+from hsip_tpu_torch import metadata as port_metadata  # noqa: E402
+from hsip_tpu_torch import pipeline as port_pipeline  # noqa: E402
+from hsip_tpu_torch.kernels import reference as port_ref  # noqa: E402
+from hsip_tpu_torch.track import config as port_config  # noqa: E402
+from hsip_tpu_torch.track import detectors as port_det  # noqa: E402
+from hsip_tpu_torch.track import fitpack as port_fitpack  # noqa: E402
+from hsip_tpu_torch.track import host_scan as port_scan  # noqa: E402
+from hsip_tpu_torch.track import velocity as port_vel  # noqa: E402
+from hsip_tpu_torch.utils.profiling import StageTimes as PortStageTimes  # noqa: E402
+
+METHODS = ["combined", "threshold", "half_maximum", "gradient"]
+DEPTHS = [8, 10, 12, 16]
+
+
+def _frames(seed, n=6, h=16, w=40, depth=12):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 1 << depth, (n, h, w)).astype(np.uint16)
+
+
+def _same_tree(a: Path, b: Path):
+    names = sorted(p.name for p in a.iterdir())
+    assert names == sorted(p.name for p in b.iterdir())
+    for name in names:
+        assert (a / name).read_bytes() == (b / name).read_bytes(), name
+
+
+# ---- _native ----
+
+def test_native_builds_into_the_port_build_dir():
+    lib = port_native.build_library()
+    assert lib.parent == Path(hsip_tpu_torch.__file__).parent / "build"
+    assert lib.name.startswith("libmraw_decode-")
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+def test_native_codec_matches(depth):
+    """Fused band gather + counts and the count pass, byte for byte."""
+    jd, pd = jax_native.native_decoder(), port_native.native_decoder()
+    frames = _frames(depth, n=5, h=12, w=64, depth=depth)
+    packed = jax_io.mraw.pack_12bit(frames) if depth == 12 else (
+        jax_io.mraw.pack_10bit(frames) if depth == 10 else (
+            frames.astype(np.uint8) if depth == 8 else frames.view(np.uint8)))
+    packed = np.ascontiguousarray(packed).reshape(-1)
+    fbytes = packed.size // 5
+    rows = np.array([2, 5, 9], dtype=np.int64) * (fbytes // 12)
+    row_nbytes = fbytes // 12
+    for d in (jd, pd):
+        assert d.has_gather_count
+    jb, jc = jd.gather_rows_count(packed, fbytes, rows, row_nbytes, 100.0, 50.0, depth)
+    pb, pc = pd.gather_rows_count(packed, fbytes, rows, row_nbytes, 100.0, 50.0, depth)
+    np.testing.assert_array_equal(pb, jb)
+    np.testing.assert_array_equal(pc, jc)
+    np.testing.assert_array_equal(
+        pd.gather_rows(packed, fbytes, rows, row_nbytes),
+        jd.gather_rows(packed, fbytes, rows, row_nbytes))
+    count = f"count_above_{depth}bit"
+    np.testing.assert_array_equal(getattr(pd, count)(packed, fbytes, 100.0, 50.0),
+                                  getattr(jd, count)(packed, fbytes, 100.0, 50.0))
+    if depth in (10, 12):
+        pack, unpack = f"pack_{depth}bit", f"unpack_{depth}bit"
+        flat = frames.reshape(-1)
+        np.testing.assert_array_equal(getattr(pd, pack)(flat), getattr(jd, pack)(flat))
+        np.testing.assert_array_equal(getattr(pd, unpack)(packed), getattr(jd, unpack)(packed))
+
+
+# ---- io: synthetic recordings, CIHX parse, MRAW decode ----
+
+@pytest.mark.parametrize("depth", DEPTHS)
+@pytest.mark.parametrize("fmt", ["cihx", "cih"])
+def test_synthetic_recordings_byte_identical(tmp_path, depth, fmt):
+    flame = dict(x0=20.0, v0_px=5.0, accel_px=0.2, ddt_frame=9, v_jump_px=7.0,
+                 ignition_frame=2, seed=depth)
+    fj, pj = jax_io.synthesize_flame_video(
+        14, height=24, width=96, flame=jax_io.FlameSpec(**flame), bit_depth=depth)
+    fp, pp = port_io.synthesize_flame_video(
+        14, height=24, width=96, flame=port_io.FlameSpec(**flame), bit_depth=depth)
+    np.testing.assert_array_equal(fp, fj)
+    np.testing.assert_array_equal(pp, pj)
+    spec = dict(width=96, height=24, total_frames=14, record_rate=50_000,
+                bit_depth=depth, start_frame=-3, comment="parity")
+    mj = jax_io.write_recording(tmp_path / "jax", "rec-1", fj,
+                                spec=jax_io.CihxSpec(**spec), metadata_format=fmt)
+    mp = port_io.write_recording(tmp_path / "port", "rec-1", fp,
+                                 spec=port_io.CihxSpec(**spec), metadata_format=fmt)
+    assert mp.name == mj.name
+    _same_tree(tmp_path / "jax", tmp_path / "port")
+
+
+@pytest.mark.parametrize("fmt", ["cihx", "cih"])
+def test_cihx_parse_matches(tmp_path, fmt):
+    spec = jax_io.CihxSpec(width=128, height=32, total_frames=9, record_rate=75_000,
+                           bit_depth=10, start_frame=-4, skip_frame=2,
+                           trigger_frame=3, irig=1, comment="header <&> parity")
+    meta = jax_io.write_recording(tmp_path, "hdr-run-7", _frames(1, 9, 32, 128, 10),
+                                  spec=spec, metadata_format=fmt)
+    assert port_io.read_header(meta) == jax_io.read_header(meta)
+    if fmt == "cihx":
+        assert port_io.read_cihx_header(meta) == jax_io.read_cihx_header(meta)
+        assert port_io.parse_cihx_xml(meta) == jax_io.parse_cihx_xml(meta)
+        assert port_io.extract_cihx_xml_bytes(meta) == jax_io.extract_cihx_xml_bytes(meta)
+    else:
+        assert port_io.read_cih_header(meta) == jax_io.read_cih_header(meta)
+    assert port_io.find_mraw_payload(meta) == jax_io.find_mraw_payload(meta)
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("depth", DEPTHS)
+def test_mraw_decode_matches(tmp_path, depth, native):
+    frames = _frames(depth + 1, n=7, h=16, w=64, depth=depth)
+    path = jax_io.write_mraw(tmp_path / "p.mraw", frames, bit_depth=depth)
+    jr = jax_io.MRAWReader(path, 64, 16, depth, use_native=native)
+    pr = port_io.MRAWReader(path, 64, 16, depth, use_native=native)
+    try:
+        assert (pr._native is not None) == (jr._native is not None) == native
+        np.testing.assert_array_equal(pr.read_frames(slice(0, 7)), frames)
+        np.testing.assert_array_equal(pr.read_frames(slice(1, 6)),
+                                      jr.read_frames(slice(1, 6)))
+        np.testing.assert_array_equal(pr.read_frame(3), jr.read_frame(3))
+        np.testing.assert_array_equal(pr.count_above(0, 7, 300.0, 20.0),
+                                      jr.count_above(0, 7, 300.0, 20.0))
+        rows = np.array([3, 8, 12], dtype=np.int32)
+        if jr.row_nbytes is not None:
+            np.testing.assert_array_equal(pr.band_bytes(1, 6, rows),
+                                          jr.band_bytes(1, 6, rows))
+    finally:
+        jr.close()
+        pr.close()
+    for pack, unpack in ((port_io.pack_12bit, port_io.unpack_12bit),
+                         (port_io.pack_10bit, port_io.unpack_10bit)):
+        flat = _frames(9, 1, 4, 40, 10).reshape(-1)
+        jpack = getattr(jax_io, pack.__name__)
+        assert np.array_equal(pack(flat), jpack(flat))
+        assert np.array_equal(unpack(pack(flat)), getattr(jax_io, unpack.__name__)(jpack(flat)))
+
+
+# ---- metadata, video ----
+
+def test_metadata_config_matches():
+    raw = {"Record Rate(fps)": 1000, "Total Frame": 10, "Image Width": 8,
+           "Image Height": 4, "Comment": "x", "Shutter Speed(s)": 1e-5,
+           "Date": "2026/1/1", "Device Name": "cam", "unknown": 3}
+    for name in ("minimal", "full", "for_processing"):
+        a = getattr(port_metadata.MetadataConfig, name)()
+        b = getattr(hsip_tpu.MetadataConfig, name)()
+        assert a.fields == b.fields
+        assert a.filter_metadata(raw) == b.filter_metadata(raw)
+
+
+def test_video_matches(flame_recording):
+    path = str(flame_recording["path"])
+    cal_p = hsip_tpu_torch.SpatialCalibration(scale=0.001, units="m")
+    cal_j = hsip_tpu.SpatialCalibration(scale=0.001, units="m")
+    with hsip_tpu_torch.open_video(path, trigger_frame=4, calibration=cal_p) as vp, \
+            hsip_tpu.open_video(path, trigger_frame=4, calibration=cal_j) as vj:
+        assert vp.describe() == vj.describe()
+        assert (len(vp), vp.frame_shape, vp.frame_rate, vp.bit_depth) == \
+            (len(vj), vj.frame_shape, vj.frame_rate, vj.bit_depth)
+        for i in (0, 5, len(vj) - 1):
+            assert vp.get_time(i) == vj.get_time(i)
+            assert vp.get_absolute_time(i) == vj.get_absolute_time(i)
+            assert vp.get_datetime(i) == vj.get_datetime(i)
+        assert vp.pixels_to_physical(17.0) == vj.pixels_to_physical(17.0)
+        np.testing.assert_array_equal(vp[3:9], vj[3:9])
+        np.testing.assert_array_equal(vp.read_batch(0, 4), vj.read_batch(0, 4))
+        rows = np.arange(28, 37, dtype=np.int32)
+        np.testing.assert_array_equal(vp.band_bytes(2, 9, rows), vj.band_bytes(2, 9, rows))
+        band_p, cnt_p = vp.band_bytes_and_counts(2, 9, rows, 60.0, 30.0)
+        band_j, cnt_j = vj.band_bytes_and_counts(2, 9, rows, 60.0, 30.0)
+        np.testing.assert_array_equal(band_p, band_j)
+        np.testing.assert_array_equal(cnt_p, cnt_j)
+        assert vp.staging_paths()[3] == vj.staging_paths()[3]
+
+
+# ---- kernels/reference, detectors ----
+
+def test_reference_ops_match():
+    rng = np.random.default_rng(3)
+    img = rng.uniform(0, 4000, (24, 50))
+    prior = rng.uniform(0, 4000, (24, 50))
+    nxt = rng.uniform(0, 4000, (24, 50))
+    checks = [
+        ("reflect_pad", (img, (2, 3))),
+        ("grey_erosion", (img, (3, 3))),
+        ("grey_dilation", (img, (4, 2))),
+        ("grey_opening", (img, (3, 3))),
+        ("grey_opening", (img, (2, 2))),
+        ("gaussian_kernel1d", (1.5,)),
+        ("gaussian_filter", (img, 1.5)),
+        ("sobel", (img, 1)),
+        ("sobel", (img, 0)),
+        ("gradient_x", (img,)),
+        ("subtract_scalar_background", (img, 900.0)),
+        ("subtract_prior_frame", (img, prior, 5.0)),
+        ("three_frame_difference", (prior, img, nxt, 5.0)),
+        ("correlate1d_reflect", (img, np.array([0.25, 0.5, 0.25]), 1)),
+    ]
+    for name, args in checks:
+        np.testing.assert_array_equal(getattr(port_ref, name)(*args),
+                                      getattr(jax_ref, name)(*args), err_msg=name)
+    assert port_ref.is_empty_frame(img, 3000.0, 0.1) == jax_ref.is_empty_frame(img, 3000.0, 0.1)
+
+
+@pytest.mark.parametrize("method", ["threshold", "half_maximum", "gradient"])
+def test_detectors_match(method):
+    rng = np.random.default_rng(METHODS.index(method))
+    cfg_p, cfg_j = port_config.FlameDetectorConfig(), jax_det.FlameDetectorConfig()
+    for t in range(60):
+        prof = np.abs(rng.normal(40, 30, 120))
+        prof[rng.integers(10, 100):][:4] = prof.max()
+        lo = int(rng.integers(0, 110))
+        bounds = (lo, int(rng.integers(lo + 1, 121))) if t % 3 else None
+        assert port_det.detect_profile(prof, method, cfg_p, bounds) == \
+            jax_det.detect_profile(prof, method, cfg_j, bounds), t
+
+
+# ---- track/config ----
+
+def test_source_config_matches():
+    kw = dict(name="S", calibration=0.002, position_offset=0.1)
+    cals = [("0.001", "0.5", ["run-1-"]), ("0.003", "0.0", ["3:5"])]
+    p = port_config.VideoSourceConfig(**kw)
+    j = JaxSourceConfig(**kw)
+    p.file_calibrations = [port_config.FileCalibration(float(c), float(o), f) for c, o, f in cals]
+    j.file_calibrations = [JaxFileCalibration(float(c), float(o), f) for c, o, f in cals]
+    for name in ("a-run-1-001.cihx", "shot-4.cihx", "shot-9.cihx", "x.cihx"):
+        assert p.get_calibration_for_file(name) == j.get_calibration_for_file(name)
+        assert p.has_calibration_for_file(name) == j.has_calibration_for_file(name)
+    assert dataclasses.asdict(port_config.FlameDetectorConfig()) == \
+        dataclasses.asdict(jax_det.FlameDetectorConfig())
+
+
+# ---- fitpack / spline ----
+
+@pytest.mark.parametrize("route", ["native", "python"])
+def test_curfit_splev_match(monkeypatch, route):
+    if route == "python":
+        def refuse():
+            raise RuntimeError("no toolchain")
+
+        monkeypatch.setattr(jax_native, "native_decoder", refuse)
+        monkeypatch.setattr(port_native, "native_decoder", refuse)
+    rng = np.random.default_rng(11)
+    for m, k, s in ((12, 3, 5.0), (30, 3, 40.0), (30, 2, 0.0), (8, 1, 2.0)):
+        x = np.cumsum(rng.integers(1, 4, m)).astype(np.float64)
+        y = 0.4 * x ** 1.3 + rng.normal(0, 2.0, m)
+        w = rng.uniform(0.5, 2.0, m)
+        tp, cp, fpp, ierp = port_fitpack.curfit(x, y, k=k, s=s, w=w)
+        tj, cj, fpj, ierj = jax_fitpack.curfit(x, y, k=k, s=s, w=w)
+        np.testing.assert_array_equal(tp, tj)
+        np.testing.assert_array_equal(cp, cj)
+        assert (fpp, ierp) == (fpj, ierj)
+        xq = np.linspace(x[0], x[-1], 57)
+        np.testing.assert_array_equal(port_fitpack.splev(xq, tp, cp, k),
+                                      jax_fitpack.splev(xq, tj, cj, k))
+
+
+# ---- velocity helpers ----
+
+def test_velocity_helpers_match():
+    rng = np.random.default_rng(8)
+    frames = np.cumsum(rng.integers(1, 3, 40))
+    pos = np.cumsum(rng.integers(0, 9, 40))
+    entries = [(int(f), None if rng.random() < 0.15 else int(p)) for f, p in zip(frames, pos)]
+    for fr, cal in ((100_000.0, 0.001), (0.0, 0.001), (20_000.0, 0.0005)):
+        vp = port_vel.velocity_entries_from_positions(entries, fr, cal)
+        vj = jax_vel.velocity_entries_from_positions(entries, fr, cal)
+        assert vp == vj
+        assert [list(map(list, x)) for x in port_vel.iter_velocity_entries(entries, fr, cal)] == \
+            [list(map(list, x)) for x in jax_vel.iter_velocity_entries(entries, fr, cal)]
+        for jump in (50.0, 1e9):
+            assert port_vel.ddt_frame_from_velocities(vp, jump) == \
+                jax_vel.ddt_frame_from_velocities(vj, jump)
+        for clear in {-1, len(vj) // 2 if vj else -1, len(vj) - 1}:
+            assert port_vel.velocities_from_positions(entries, fr, cal, clear) == \
+                jax_vel.velocities_from_positions(entries, fr, cal, clear)
+
+
+# ---- host scan, tracker, exact backend, table writer ----
+
+def _recording_profiles(frames, module, config):
+    n, h, w = frames.shape
+    return module._compute_profiles_host_exact(
+        lambda a, b: frames[a:b], n, (h, w), float(frames[0].max()), config,
+        skip_frames=(5,))
+
+
+@pytest.fixture(scope="module")
+def ddt_frames():
+    flame = jax_io.FlameSpec(x0=20.0, v0_px=4.0, ddt_frame=18, v_jump_px=22.0,
+                             ignition_frame=3, seed=11)
+    return jax_io.synthesize_flame_video(40, height=32, width=256, flame=flame)[0]
+
+
+@pytest.mark.parametrize("use_frame_diff", [True, False])
+@pytest.mark.parametrize("method", METHODS)
+def test_host_scan_rows_match(ddt_frames, method, use_frame_diff):
+    """Profiles, rows, velocity history, DDT and the spline predictions
+    of the viz hook, from the port's host scan and the original."""
+    cfg_p, cfg_j = port_config.FlameDetectorConfig(), jax_det.FlameDetectorConfig()
+    pp = _recording_profiles(ddt_frames, port_scan, cfg_p)
+    pj = _recording_profiles(ddt_frames, jax_scan, cfg_j)
+    for f in dataclasses.fields(pj):
+        np.testing.assert_array_equal(getattr(pp, f.name), getattr(pj, f.name))
+    hooks = {"port": [], "jax": []}
+    outs = {}
+    for key, mod, prof, cfg in (("port", port_scan, pp, cfg_p), ("jax", jax_scan, pj, cfg_j)):
+        outs[key] = mod.run_tracking_scan(
+            prof, cfg, 100_000.0, 0.0008, position_offset_m=0.3,
+            on_result=lambda r, t, k=key: hooks[k].append(
+                (r.frame_idx, r.final_position, r.search_bounds, r.pos_spline_predicted)),
+            detection_method=method, use_frame_diff=use_frame_diff)
+    op, oj = outs["port"], outs["jax"]
+    assert op.rows == oj.rows and len(oj.rows) > 3
+    assert hooks["port"] == hooks["jax"]
+    assert (op.empty_frame_count, op.break_frame, op.break_reason) == \
+        (oj.empty_frame_count, oj.break_frame, oj.break_reason)
+    assert op.tracker.get_velocity_history() == oj.tracker.get_velocity_history()
+    assert op.tracker.ddt_frame == oj.tracker.ddt_frame
+    assert op.merged_rows() == oj.merged_rows()
+    assert pp.select_intensity(method, use_frame_diff)[1].tolist() == \
+        pj.select_intensity(method, use_frame_diff)[1].tolist()
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_exact_backend_matches(flame_recording, method):
+    def cfg(module_cfg):
+        return module_cfg(name="S", detection_method=method, skip_frames=[6],
+                          calibration=0.0008, position_offset=0.5)
+
+    det_p, det_j = port_config.FlameDetectorConfig(), jax_det.FlameDetectorConfig()
+    path = str(flame_recording["path"])
+    with hsip_tpu_torch.open_video(path) as vp, hsip_tpu.open_video(path) as vj:
+        bg = float(np.max(vj[0]))
+        op = port_pipeline._track_video_exact(vp, det_p, 0.0008, 0.5,
+                                              cfg(port_config.VideoSourceConfig), bg)
+        oj = jax_pipeline._track_video_exact(vj, det_j, 0.0008, 0.5, cfg(JaxSourceConfig), bg)
+    assert op.rows == oj.rows and len(oj.rows) > 5
+    assert op.merged_rows() == oj.merged_rows()
+    assert (op.empty_frame_count, op.break_reason) == (oj.empty_frame_count, oj.break_reason)
+
+
+def test_ddt_split_tables_byte_identical(ddt_frames, tmp_path):
+    cfg_p, cfg_j = port_config.FlameDetectorConfig(), jax_det.FlameDetectorConfig()
+    op = port_scan.run_tracking_scan(_recording_profiles(ddt_frames, port_scan, cfg_p),
+                                     cfg_p, 100_000.0, 0.0008, 0.3)
+    oj = jax_scan.run_tracking_scan(_recording_profiles(ddt_frames, jax_scan, cfg_j),
+                                    cfg_j, 100_000.0, 0.0008, 0.3)
+    assert oj.tracker.ddt_detected
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    paths_p = port_pipeline._write_ddt_split_tables(op, tmp_path / "port", "r-1", False)
+    paths_j = jax_pipeline._write_ddt_split_tables(oj, tmp_path / "jax", "r-1", False)
+    assert sorted(paths_p) == sorted(paths_j) == ["all", "post_ddt", "pre_ddt"]
+    _same_tree(tmp_path / "jax", tmp_path / "port")
+    rows = [(1, 0.5, 3, 0.25, None, 2.5, None)]
+    port_pipeline.write_position_results(rows, tmp_path / "p.txt")
+    jax_pipeline.write_position_results(rows, tmp_path / "j.txt")
+    assert filecmp.cmp(tmp_path / "p.txt", tmp_path / "j.txt", shallow=False)
+    assert port_pipeline.RESULT_COLUMNS == jax_pipeline.RESULT_COLUMNS
+
+
+def test_unmatched_calibration_warning_matches(capsys):
+    cfg_p = port_config.VideoSourceConfig(name="S")
+    cfg_j = JaxSourceConfig(name="S")
+    cfg_p.file_calibrations = [port_config.FileCalibration(0.001, 0.0, ["zzz"])]
+    cfg_j.file_calibrations = [JaxFileCalibration(0.001, 0.0, ["zzz"])]
+    port_pipeline._warn_unmatched_calibration(cfg_p, "run-1.cihx")
+    printed_p = capsys.readouterr().out
+    jax_pipeline._warn_unmatched_calibration(cfg_j, "run-1.cihx")
+    assert printed_p == capsys.readouterr().out != ""
+
+
+# ---- StageTimes ----
+
+def test_stage_times_match():
+    tp, tj = PortStageTimes(), JaxStageTimes()
+    for t in (tp, tj):
+        t.add("h2d", 0.125)
+        t.add("h2d", 0.25)
+        t.add("read_gather", 1.0 / 3.0)
+        assert t.wrap("scan", lambda a, b=2: a * b)(21) == 42
+        with t.stage("drain"):
+            pass
+    dp, dj = tp.as_dict(), tj.as_dict()
+    assert list(dp) == list(dj) == ["drain", "h2d", "read_gather", "scan"]
+    assert (dp["h2d"], dp["read_gather"]) == (dj["h2d"], dj["read_gather"]) == (0.375, 0.3333)
+    assert tp.as_dict(2)["read_gather"] == tj.as_dict(2)["read_gather"]
+
+
+# ---- viz ----
+
+def test_figures_byte_identical(flame_recording, tmp_path):
+    """A compact diagnostic and a stacked sequence, rendered by each
+    package's figure module from the same inputs, give the same PNG bytes."""
+    pytest.importorskip("matplotlib")
+    from hsip_tpu import viz as jax_viz
+    from hsip_tpu_torch import viz as port_viz
+
+    path = str(flame_recording["path"])
+    cfg_j, cfg_p = jax_det.FlameDetectorConfig(), port_config.FlameDetectorConfig()
+    task = dict(frame_idx=6, time_s=6e-5, pos_min_gradient=80, pos_rightmost_sobel=82,
+                pos_spline_predicted=None, search_bounds=(60, 140), final_position=82,
+                prior_frame_idx=5)
+    entries = [(f, 40 + 7 * f) for f in range(2, 12)]
+    for key, viz, cfg, video_mod in (("jax", jax_viz, cfg_j, hsip_tpu),
+                                     ("port", port_viz, cfg_p, hsip_tpu_torch)):
+        out = tmp_path / key
+        viz.render_diagnostics_parallel(path, [task], entries, 80_000.0, 0.001, 60.0,
+                                        out, "S", cfg, workers=1, style="compact")
+        with video_mod.open_video(path) as v:
+            viz.generate_stacked_sequence_single_column(
+                v, [2, 6, 10], 60.0, out / "stacked.png", title="S")
+    _same_tree(tmp_path / "jax", tmp_path / "port")
+    assert len(list((tmp_path / "port").iterdir())) == 2

@@ -7,6 +7,7 @@ write tables byte-identical to ``tests/golden/`` and to
 against 'device').
 """
 
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -152,55 +153,105 @@ def test_cpu_run_launches_no_kernel_and_never_builds(flame_recording,
 
 _GUARD = r"""
 import sys
-sys.modules["jax"] = None  # any `import jax` now raises ImportError
+
+
+class _Block:
+    # Makes jax and the JAX package unimportable (hsip_tpu_torch stays).
+    def find_spec(self, name, path=None, target=None):
+        root = name.split(".")[0]
+        if root in ("jax", "hsip_tpu"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Block())
 import hsip_tpu_torch
 from hsip_tpu_torch.pipeline import process_video_file
-from hsip_tpu.track import VideoSourceConfig
-cfg = VideoSourceConfig(name="S", save_frame_images=False,
+from hsip_tpu_torch.track.config import FileCalibration, VideoSourceConfig
+
+cfg = VideoSourceConfig(name="G", save_frame_images=False,
                         save_stacked_sequences=False)
-cfg.output_dir = sys.argv[2]
-for backend in ("gpu", "device"):
+cfg.file_calibrations = [FileCalibration(calibration=0.000833333,
+                                         position_offset=1.0159,
+                                         files=["run-1-"])]
+for backend in ("gpu", "device", "exact"):
+    cfg.output_dir = sys.argv[2] + "/" + backend
     out = process_video_file(sys.argv[1], cfg, backend=backend, verbose=False,
                              device="cpu")
     assert len(out.rows) > 5, backend
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-assert loaded == ["jax"], loaded  # only the None placeholder
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "hsip_tpu"))
+assert loaded == [], loaded
 print("ok")
 """
 
 
-def test_port_runs_without_jax(flame_recording, tmp_path):
+def test_port_runs_without_jax(tmp_path):
+    """With jax and hsip_tpu unimportable, the port's CPU run of every
+    backend writes the golden table byte for byte."""
+    meta, _ = _golden_recording(tmp_path)
     proc = subprocess.run(
-        [sys.executable, "-c", _GUARD, str(flame_recording["path"]),
-         str(tmp_path / "out")],
+        [sys.executable, "-c", _GUARD, str(meta), str(tmp_path / "out")],
         capture_output=True, text=True, timeout=300, cwd=str(REPO),
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
-    assert list((tmp_path / "out").glob("*-flame-position.txt"))
+    for backend in ("gpu", "device", "exact"):
+        produced = tmp_path / "out" / backend / GOLDEN.name
+        assert produced.read_bytes() == GOLDEN.read_bytes(), backend
+
+
+def _port_files():
+    return sorted((REPO / "hsip_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    """Top-level package of every module an import statement names
+    (relative imports resolve inside the port)."""
+    import ast
+
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
 
 
 def test_port_sources_never_import_jax():
-    """No module of the port (nor chip_smoke.py) names jax in an import."""
-    import re
-
-    pattern = re.compile(r"^\s*(import jax|from jax\b)", re.M)
-    files = sorted((REPO / "hsip_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    """No module of the port (nor chip_smoke.py) imports jax, at any depth
+    of the file (AST scan, so lazy imports inside functions count too)."""
+    offenders = [str(f) for f in _port_files() if "jax" in _imported_roots(f)]
     assert not offenders
 
 
-@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_port_sources_never_import_the_jax_package():
+    """No module of the port (nor chip_smoke.py) imports hsip_tpu or any
+    hsip_tpu.* module; hsip_tpu_torch is its own root."""
+    offenders = [str(f) for f in _port_files() if "hsip_tpu" in _imported_roots(f)]
+    assert not offenders
+    assert "hsip_tpu_torch" in _imported_roots(REPO / "chip_smoke.py")
+
+
+@pytest.mark.parametrize("where", ["repo", "alone", "port_only"])
 def test_chip_smoke_refuses_without_card_or_port(tmp_path, where):
     """chip_smoke.py exits non-zero and prints no result on a machine
-    without CUDA, and in a directory holding nothing else of the repo."""
-    if where == "repo" and torch.cuda.is_available():
+    without CUDA, and in a directory holding nothing else of the repo. Its
+    start check asks only for the port: beside hsip_tpu_torch/ alone (no
+    hsip_tpu/) it gets as far as the card check."""
+    if where != "alone" and torch.cuda.is_available():
         pytest.skip("with a card, chip_smoke.py runs in full")
     script = REPO / "chip_smoke.py"
-    if where == "alone":
+    if where != "repo":
         (tmp_path / "chip_smoke.py").write_bytes(script.read_bytes())
         script = tmp_path / "chip_smoke.py"
+    if where == "port_only":
+        shutil.copytree(REPO / "hsip_tpu_torch", tmp_path / "hsip_tpu_torch",
+                        ignore=shutil.ignore_patterns("build", "__pycache__"))
     proc = subprocess.run([sys.executable, str(script)], capture_output=True,
                           text=True, timeout=120, cwd=str(script.parent))
     assert proc.returncode != 0
     assert proc.stdout == ""
+    expected = "checkout" if where == "alone" else "torch.cuda.is_available"
+    assert expected in proc.stderr
