@@ -12,8 +12,9 @@ Phases, each fatal when it fails:
 2. build: compiles ``hsip_tpu_torch/csrc/*.cu`` with ``nvcc`` into
    ``hsip_tpu_torch/build/`` (first use) and prints the build time;
 3. the band kernel against its plain PyTorch version on the card, over
-   W ∈ {1024, 1000, 250, 136}, (k, σ) ∈ {(3, 1.5), (2, 1.5), (5, 2.0),
-   (3, 3.0)} and N ∈ {1, 4096} (atol 1e-4, rtol 1e-5);
+   W ∈ {1024, 1000, 250, 136, 129}, (k, σ) ∈ {(3, 1.5), (2, 1.5),
+   (5, 2.0), (3, 3.0)} and N ∈ {1, 37, 4096}, and at (3, 1.5) also its
+   runtime-count instantiation: within atol 1e-4, rtol 1e-5 and bit-equal;
 4. the tracking-scan kernel against its plain version on the card, all
    four detectors at M=2048, W=1024, on random profiles with planted ties,
    on the profiles of the phase-5 recording, and on four videos at once
@@ -27,7 +28,10 @@ Phases, each fatal when it fails:
    (CUDA events, median; the scan at V=1, V=8 and about one video per
    SM, with the rate of its whole-row copies there), each beside its bound
    (bytes moved over the memory rate, or operations over the float32 rate,
-   whichever is larger), and the wall clock of both backends.
+   whichever is larger), the band kernel's read rate (the bytes of band
+   tiles its blocks copy, as the kernel counts them, over its time), its
+   (3, 13) instantiation against the runtime-count one at the same
+   shapes, and the wall clock of both backends.
 
 It prints, before the last line, a JSON object with one entry per kernel,
 and as the last line ``{"ok": true, "device": {...}}``. It exits non-zero,
@@ -99,23 +103,33 @@ def band_case(rng, n, k, sigma, w):
 
 
 def check_band_kernel(dev, rng):
-    """Phase 3: returns the largest abs diff over the sweep."""
+    """Phase 3: returns the largest abs diff over the sweep, which must be
+    bit-equal. The config default (3, 1.5) runs both instantiations: its
+    own and, through the probe entry, the one with runtime counts."""
     import torch
 
     from hsip_tpu_torch.kernels.cuda_preprocess import (
         band_profiles_plain,
+        band_profiles_probe,
         cuda_band_profiles,
     )
 
+    def runtime_counts(*args):
+        return band_profiles_probe(*args, runtime_counts=True)[0]
+
     worst_abs = worst_rel = 0.0
     all_equal = True
-    for k, sigma in ((3, 1.5), (2, 1.5), (5, 2.0), (3, 3.0)):
-        for w in (1024, 1000, 250, 136):
-            for n in (1, 4096):
+    cases = 0
+    for k, sigma, kernel in ((3, 1.5, cuda_band_profiles), (3, 1.5, runtime_counts),
+                             (2, 1.5, cuda_band_profiles), (5, 2.0, cuda_band_profiles),
+                             (3, 3.0, cuda_band_profiles)):
+        for w in (1024, 1000, 250, 136, 129):
+            for n in (1, 37, 4096):
+                cases += 1
                 band, prior = band_case(rng, n, k, sigma, w)
                 band_t = torch.from_numpy(band).to(dev)
                 prior_t = torch.from_numpy(prior).to(dev)
-                got = cuda_band_profiles(band_t, prior_t, 5.0, k, sigma)
+                got = kernel(band_t, prior_t, 5.0, k, sigma)
                 want = band_profiles_plain(band_t, prior_t, 5.0, k, sigma)
                 torch.cuda.synchronize()
                 for g, r in zip(got, want):
@@ -125,8 +139,10 @@ def check_band_kernel(dev, rng):
                     worst_rel = max(worst_rel, float((d / r.abs().clamp_min(1e-30)).max()))
                     all_equal = all_equal and bool(torch.equal(g, r))
                 del band_t, got, want
-    log(f"band kernel vs plain: 32 cases, max abs {worst_abs:.3e}, "
+    log(f"band kernel vs plain: {cases} cases, max abs {worst_abs:.3e}, "
         f"max rel {worst_rel:.3e}, bit-equal: {all_equal}")
+    if not all_equal:
+        raise AssertionError("band kernel is not bit-equal to its plain version")
     return worst_abs
 
 
@@ -350,7 +366,9 @@ def main() -> int:
     from hsip_tpu_torch import open_video
     from hsip_tpu_torch.kernels import _build
     from hsip_tpu_torch.kernels.cuda_preprocess import (
+        band_plan,
         band_profiles_plain,
+        band_profiles_probe,
         cuda_band_profiles,
     )
     from hsip_tpu_torch.kernels.preprocess import gaussian_taps
@@ -461,6 +479,17 @@ def main() -> int:
         band_plain_ms = cuda_ms(lambda: band_profiles_plain(band_t, prior_t, 5.0, k, sigma), 5)
         band_bound_ms, band_bound_by = band_bound(
             n, band.shape[1], WIDTH, k, len(gaussian_taps(sigma)))
+        plan = band_plan(n, WIDTH, k, sigma)
+        # The bytes of band tiles the blocks copy, as the kernel counts
+        # them; then the (3, 13) instantiation against the runtime-count
+        # one, both through the probe entry, in the order A, B, B, A.
+        band_read = int(band_profiles_probe(band_t, prior_t, 5.0, k, sigma)[1].item())
+        band_read_tb_s = band_read / (band_ms * 1e-3) / 1e12
+        probe_ms = {}
+        for rc in (False, True, True, False):
+            probe_ms.setdefault(rc, []).append(cuda_ms(
+                lambda: band_profiles_probe(band_t, prior_t, 5.0, k, sigma,
+                                            runtime_counts=rc), 20))
         fi, s, g, em, hp, it = scan_inputs(real, real_empty, dev)
         kw = dict(width=WIDTH, intensity_lines=it, **params_for("combined"))
         scan_res = cuda_tracking_scan(fi, s, g, em, hp, **kw)
@@ -491,6 +520,13 @@ def main() -> int:
             f"{band_ms:.4f} ms; plain PyTorch {band_plain_ms:.4f} ms; bound "
             f"{band_bound_ms:.4f} ms ({band_bound_by}), "
             f"{band_bound_ms / band_ms:.2%} of it")
+        log(f"[{card}] band kernel plan: {plan}; its blocks copy {band_read} bytes "
+            f"of band tiles, counted by the kernel ({band_read / band.nbytes:.3f}x "
+            f"the band), {band_read_tb_s:.3f} TB/s over its time")
+        log(f"[{card}] band kernel through the probe entry (counting its loads): "
+            f"(3, 13) instantiation {probe_ms[False][0]:.4f} / {probe_ms[False][1]:.4f} ms, "
+            f"runtime-count instantiation {probe_ms[True][0]:.4f} / "
+            f"{probe_ms[True][1]:.4f} ms")
         log(f"[{card}] scan kernel, combined, V=1 M={n} W={WIDTH}: {scan_ms:.4f} ms "
             f"({scan_ms * 1e3 / n:.3f} us a step); plain PyTorch {scan_plain_ms:.4f} ms; "
             f"bound {scan_bound_ms:.4f} ms ({scan_bound_by}), "

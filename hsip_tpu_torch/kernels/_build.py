@@ -43,6 +43,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # band, prior, sobel, grad, intensity, n, b, w, k, ntaps, taps, thresh, stream
     "hsip_band_profiles": [_P] * 5 + [_I] * 5 + [_P, _F, _P],
+    # the same, then loaded (device u64: bytes of band tiles copied),
+    # runtime_counts
+    "hsip_band_profiles_probe": [_P] * 5 + [_I] * 5 + [_P, _F, _P, _P, _I],
+    # n, b, w, k, ntaps, out[6] -> the launch plan (tile, stride, run, tiles,
+    # runs, blocks an SM)
+    "hsip_band_profiles_plan": [_I] * 5 + [_P],
     # frame_indices, prof0, prof1, empty, has_prior, calibration,
     # frame_rate, max_disp, final, recorded, is_post, s0, s1, stop_step,
     # stop_reason, ddt_frame, clear_vc, v, m, w, edge_margin,

@@ -39,22 +39,88 @@ def _cuda():
     return torch.device("cuda")
 
 
+def _broken_priors(n):
+    """The main path's priors (the previous frame) with runs broken by -1,
+    non-adjacent priors, two in a row, and one later than its frame."""
+    prior = np.arange(-1, n - 1, dtype=np.int32)
+    prior[[5, 7, 20, 21, 30]] = [-1, 2, 11, 3, 33]
+    return prior
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,sigma", [(3, 1.5), (2, 1.5), (5, 2.0), (3, 3.0)])
-def test_band_kernel_matches_plain(k, sigma):
+@pytest.mark.parametrize("k,sigma,runtime_counts", [
+    (3, 1.5, False), (3, 1.5, True), (2, 1.5, False), (5, 2.0, False), (3, 3.0, False),
+])
+def test_band_kernel_matches_plain(k, sigma, runtime_counts):
+    """Bit-equal to the plain chain: widths at and past the 128-column tile
+    (129, 257) and narrower than the halo (7, 2), N not a multiple of the
+    kernel's frame run (37), and priors that break a block's run of
+    adjacent frames (-1, non-adjacent, two in a row, later than the frame).
+    At the (3, 1.5) default also the runtime-count instantiation, which
+    the probe entry runs there."""
+    from hsip_tpu_torch.kernels.cuda_preprocess import band_profiles_probe
+
+    def kernel(*args):
+        if runtime_counts:
+            return band_profiles_probe(*args, runtime_counts=True)[0]
+        return cuda_band_profiles(*args)
+
     dev = _cuda()
-    rng = np.random.default_rng(k * 10 + int(sigma * 2))
-    for w in (1024, 1000, 250, 136, 7, 2):  # 7, 2: windows wider than W
-        n, b = 64, 2 * band_margin(k, sigma) + 1
-        band = torch.from_numpy(rng.integers(0, 4096, (n, b, w)).astype(np.float32)).to(dev)
-        prior_np = np.arange(-1, n - 1, dtype=np.int32)
-        prior_np[[5, 7, 40]] = [-1, 2, 11]  # -1 and priors that are not adjacent
-        prior = torch.from_numpy(prior_np).to(dev)
-        got = cuda_band_profiles(band, prior, 5.0, k, sigma)
-        want = band_profiles_plain(band, prior, 5.0, k, sigma)
-        torch.cuda.synchronize()
-        for g, r in zip(got, want):
-            torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-5)
+    rng = np.random.default_rng(k * 10 + int(sigma * 2) + runtime_counts)
+    b = 2 * band_margin(k, sigma) + 1
+    for w in (1024, 1000, 250, 136, 129, 257, 7, 2):  # 7, 2: windows wider than W
+        for n in (64, 37):
+            band = torch.from_numpy(rng.integers(0, 4096, (n, b, w)).astype(np.float32)).to(dev)
+            prior = torch.from_numpy(_broken_priors(n)).to(dev)
+            got = kernel(band, prior, 5.0, k, sigma)
+            want = band_profiles_plain(band, prior, 5.0, k, sigma)
+            torch.cuda.synchronize()
+            for g, r in zip(got, want):
+                torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-5)
+                assert torch.equal(g, r), (w, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("runtime_counts", [False, True])
+@pytest.mark.parametrize("w", [1024, 250])
+def test_band_kernel_reads_each_band_about_once(w, runtime_counts):
+    """The bytes the kernel counts for its tile copies: with the main
+    path's priors a run of F frames copies F + 1 tiles; each prior that
+    breaks the run (not the first frame of a run) copies one tile more."""
+    from hsip_tpu_torch.kernels.cuda_preprocess import band_plan, band_profiles_probe
+
+    dev = _cuda()
+    n, k, sigma = 300, 3, 1.5
+    b = 2 * band_margin(k, sigma) + 1
+    band = torch.zeros((n, b, w), device=dev)
+    plan = band_plan(n, w, k, sigma)
+    tile_bytes = 4 * b * plan.stride
+    main = np.arange(-1, n - 1, dtype=np.int32)
+    broken = _broken_priors(n)
+    extra = sum(1 for i in range(n) if i % plan.run and broken[i] != i - 1)
+    assert extra >= 3
+    for prior, tiles in ((main, n + plan.runs), (broken, n + plan.runs + extra)):
+        _, loaded = band_profiles_probe(band, torch.from_numpy(prior).to(dev), 5.0,
+                                        k, sigma, runtime_counts=runtime_counts)
+        assert int(loaded.item()) == plan.tiles * tiles * tile_bytes
+    assert plan.runs < n // 4  # most priors come from the previous frame's tile
+
+
+@pytest.mark.cuda
+def test_band_kernel_refuses_a_band_past_shared_memory():
+    """sigma = 8 needs a 71-row band, whose tiles exceed a block's shared
+    memory: the wrapper raises a ValueError that names k, sigma and W, and
+    never runs the plain version."""
+    from hsip_tpu_torch.kernels.cuda_preprocess import band_plan
+
+    dev = _cuda()
+    k, sigma, w = 3, 8.0, 256
+    assert band_plan(4, w, k, sigma) is None
+    band = torch.zeros((4, 2 * band_margin(k, sigma) + 1, w), device=dev)
+    prior = torch.arange(-1, 3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match=r"k=3, sigma=8.0, W=256.*shared memory"):
+        cuda_band_profiles(band, prior, 5.0, k, sigma)
+    assert band_plan(4, w, 3, 6.0) is not None  # 55 rows still fit
 
 
 @pytest.mark.cuda
