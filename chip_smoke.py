@@ -13,12 +13,15 @@ Phases, each fatal when it fails:
    ``hsip_tpu_torch/build/`` (first use) and prints the build time;
 3. the band kernel against its plain PyTorch version on the card, over
    W ∈ {1024, 1000, 250, 136, 129}, (k, σ) ∈ {(3, 1.5), (2, 1.5),
-   (5, 2.0), (3, 3.0)} and N ∈ {1, 37, 4096}, and at (3, 1.5) also its
-   runtime-count instantiation: within atol 1e-4, rtol 1e-5 and bit-equal;
+   (5, 2.0), (3, 3.0)} and N ∈ {1, 37, 4096}, at (3, 1.5) also its
+   runtime-count instantiation, and one batch shaped like a library group
+   (N = 4·37, no prior at each video's first row): within atol 1e-4,
+   rtol 1e-5 and bit-equal;
 4. the tracking-scan kernel against its plain version on the card, all
    four detectors at M=2048, W=1024, on random profiles with planted ties,
-   on the profiles of the phase-5 recording, and on four videos at once
-   (V=4, per-video calibration, frame rate and displacement cap): all
+   on the profiles of the phase-5 recording, on four videos at once
+   (V=4, per-video calibration, frame rate and displacement cap), and on
+   four videos of ragged lengths (the rows past each length empty): all
    nine fields equal;
 5. the slice: ``process_video_file`` with backend 'gpu' and 'device' on a
    2048-frame 128×1024 12-bit recording and on the golden recording; the
@@ -31,7 +34,22 @@ Phases, each fatal when it fails:
    whichever is larger), the band kernel's read rate (the bytes of band
    tiles its blocks copy, as the kernel counts them, over its time), its
    (3, 13) instantiation against the runtime-count one at the same
-   shapes, and the wall clock of both backends.
+   shapes, the wall clock of both backends and their ``StageTimes``;
+7. library mode: ``process_video_source_library`` over a directory of
+   eight such recordings (one payload, hard-linked; half the names match
+   the source's ``run-1-`` calibration), a 512-frame one of the same shape
+   with a dark preamble, and the golden one. Every group must take the
+   fused path, both kernels must be launched at least once a group and the
+   scan with V > 1, and every table must equal, byte for byte, the per-file
+   ``device`` run's of the same recording on the card (the golden one
+   ``tests/golden/``) — also on the chunked path (``HSIP_FUSED=0``), with
+   one group (``HSIP_FUSED_GROUPS=1``), with the clip off and with the clip
+   forced (``HSIP_CLIP_EMPTY=1``); a second run with ``resume=True``
+   processes nothing and leaves tables and summary as they were. Then
+   times: the per-file source runner against library mode over the eight
+   (median of 3 warm runs each, in turns), the library's ``StageTimes`` and
+   per-group timeline, peak device memory against the fused budget's
+   estimate, and both kernels at the library's shapes.
 
 It prints, before the last line, a JSON object with one entry per kernel,
 and as the last line ``{"ok": true, "device": {...}}``. It exits non-zero,
@@ -106,6 +124,7 @@ def check_band_kernel(dev, rng):
     """Phase 3: returns the largest abs diff over the sweep, which must be
     bit-equal. The config default (3, 1.5) runs both instantiations: its
     own and, through the probe entry, the one with runtime counts."""
+    import numpy as np
     import torch
 
     from hsip_tpu_torch.kernels.cuda_preprocess import (
@@ -139,6 +158,21 @@ def check_band_kernel(dev, rng):
                     worst_rel = max(worst_rel, float((d / r.abs().clamp_min(1e-30)).max()))
                     all_equal = all_equal and bool(torch.equal(g, r))
                 del band_t, got, want
+    # A library group's batch: 4 videos of 37 frames, flat, each video's
+    # first row without a prior, every other row's prior the row before.
+    cases += 1
+    n = 4 * 37
+    band, _ = band_case(rng, n, 3, 1.5, 1024)
+    flat = np.arange(n, dtype=np.int32)
+    prior = np.where(flat % 37 > 0, flat - 1, -1).astype(np.int32)
+    assert [int(i) for i in np.flatnonzero(prior < 0)] == [0, 37, 74, 111]
+    band_t, prior_t = torch.from_numpy(band).to(dev), torch.from_numpy(prior).to(dev)
+    got = cuda_band_profiles(band_t, prior_t, 5.0, 3, 1.5)
+    want = band_profiles_plain(band_t, prior_t, 5.0, 3, 1.5)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        worst_abs = max(worst_abs, float((g - r).abs().max()))
+        all_equal = all_equal and bool(torch.equal(g, r))
     log(f"band kernel vs plain: {cases} cases, max abs {worst_abs:.3e}, "
         f"max rel {worst_rel:.3e}, bit-equal: {all_equal}")
     if not all_equal:
@@ -193,13 +227,15 @@ def check_scan_kernel(dev, rng, real_profiles, real_empty, params_for):
     prior[0, 0] = False
     fidx = torch.from_numpy(np.cumsum(rng.integers(1, 3, m)).astype(np.int32))[None].to(dev)
     worst = 0
+    four = four_videos(rng, real_profiles, real_empty, dev)
     sets = {"random+ties": (fidx, sob, grad, empty, prior, intens),
             "recording": scan_inputs(real_profiles, real_empty, dev),
-            "4 videos": four_videos(rng, real_profiles, real_empty, dev)}
+            "4 videos": four,
+            "4 ragged": ragged(four, (m, 1500, 37, 1))}
     for label, (fi, s, g, em, hp, it) in sets.items():
         for method in METHODS:
             params = params_for(method)
-            if label == "4 videos":
+            if label.startswith("4 "):
                 params = four_video_params(params)
             kw = dict(width=w, intensity_lines=it, **params)
             got = cuda_tracking_scan(fi, s, g, em, hp, **kw)
@@ -213,6 +249,16 @@ def check_scan_kernel(dev, rng, real_profiles, real_empty, params_for):
             log(f"scan kernel vs plain: {label:12s} {method:13s} 9/9 fields equal, "
                 f"{int((got.final_position >= 0).sum())} detections")
     return float(worst)
+
+
+def ragged(videos, lengths):
+    """The (V, ...) scan tensors as a library group pads them: video i has
+    ``lengths[i]`` frames, and the rows past them are empty."""
+    fi, s, g, em, hp, it = videos
+    em = em.clone()
+    for i, n in enumerate(lengths):
+        em[i, n:] = True
+    return fi, s, g, em, hp, it
 
 
 def four_video_params(params, copies=1):
@@ -346,8 +392,233 @@ def run_file(meta, out_dir, backend, device):
     if torch.device(device).type != "cpu":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    tables = {p.name: p.read_bytes() for p in sorted(Path(out_dir).glob("*.txt"))}
-    return out, wall, tables
+    return out, wall, tables_of(out_dir)
+
+
+def link_recording(meta, directory, stem):
+    """``meta``'s recording under another name: the header copied, the
+    payload hard-linked (bench.py's way to a library of one payload)."""
+    import os
+    import shutil
+
+    directory.mkdir(parents=True, exist_ok=True)
+    shutil.copyfile(meta, directory / f"{stem}.cihx")
+    os.link(Path(meta).with_suffix(".mraw"), directory / f"{stem}.mraw")
+    return directory / f"{stem}.cihx"
+
+
+def write_short_recording(directory):
+    """512 frames of the bench shape, dark until frame 128."""
+    from hsip_tpu_torch.io import CihxSpec, FlameSpec, synthesize_flame_video, write_recording
+
+    n = 512
+    flame = FlameSpec(x0=30.0, v0_px=WIDTH / (1.3 * (n - 128)), accel_px=0.0,
+                      ignition_frame=128, seed=43)
+    frames, _ = synthesize_flame_video(n, height=HEIGHT, width=WIDTH, flame=flame)
+    spec = CihxSpec(width=WIDTH, height=HEIGHT, total_frames=n,
+                    record_rate=100_000, bit_depth=12)
+    return write_recording(directory, "short-run-1-001", frames, spec=spec)
+
+
+def library_source(video_dir, out_dir):
+    cfg = source_config(out_dir)
+    cfg.video_path = str(video_dir)
+    return cfg
+
+
+def tables_of(out_dir):
+    return {p.name: p.read_bytes() for p in sorted(Path(out_dir).glob("*.txt"))}
+
+
+def env_set(**values):
+    """Set (or, with None, unset) environment switches; returns the old ones."""
+    import os
+
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return old
+
+
+def run_library(video_dir, out_dir, resume=False, **env):
+    """One process_video_source_library run on the card under the given
+    environment switches; (outputs, wall seconds, tables, group paths,
+    clipped, pipeline trace)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from hsip_tpu_torch.pipeline import process_video_source_library
+    from hsip_tpu_torch.track import batch, fused
+
+    old = env_set(**env)
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # calibration warnings
+            outs = process_video_source_library(
+                library_source(video_dir, out_dir), verbose=False, resume=resume)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        env_set(**old)
+    return (outs, wall, tables_of(out_dir), list(batch.LAST_GROUP_PATHS),
+            fused._LAST_CLIPPED, [dict(t) for t in fused._LAST_PIPELINE_TRACE])
+
+
+def run_loop(video_dir, out_dir):
+    """The per-file source runner (backend 'device') on the card;
+    (outputs, wall seconds, tables)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from hsip_tpu_torch.pipeline import process_video_source
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        outs = process_video_source(library_source(video_dir, out_dir),
+                                    backend="device", verbose=False)
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0, tables_of(out_dir)
+
+
+def library_phase(tmp, meta, golden_meta, card, config):
+    """Phase 7. Returns the launch counts of the library run (band, scan,
+    scan videos) and what it measured."""
+    import torch
+
+    from hsip_tpu_torch import open_collection
+    from hsip_tpu_torch.kernels.cuda_preprocess import cuda_band_profiles
+    from hsip_tpu_torch.kernels.preprocess import band_margin
+    from hsip_tpu_torch.track import batch, fused
+    from hsip_tpu_torch.track.cuda_scan import cuda_tracking_scan
+    from hsip_tpu_torch.utils import StageTimes
+
+    t0 = time.perf_counter()
+    lib, lib8 = tmp / "lib", tmp / "lib8"
+    for i in range(8):
+        # lib-run-1-00x matches the source's "run-1-" calibration, the
+        # other half takes the default: per-video calibrations differ.
+        stem = f"lib-run-{1 if i < 4 else 2}-{i % 4 + 1:03d}"
+        link_recording(meta, lib, stem)
+        link_recording(meta, lib8, stem)
+    short_meta = write_short_recording(tmp / "short")
+    link_recording(short_meta, lib, short_meta.stem)
+    link_recording(golden_meta, lib, Path(golden_meta).stem)
+    names = sorted(p.name for p in lib.glob("*.cihx"))
+    log(f"library of {len(names)} recordings built in {time.perf_counter() - t0:.2f} s")
+
+    # The per-file 'device' run on the card of every recording, each under
+    # its own name: what every library table must equal.
+    want = {}
+    for name in names:
+        _, _, tables = run_file(lib / name, tmp / "lib-per-file", "device", GPU)
+        want = tables
+    golden = (REPO / "tests" / "golden" / "golden-run-1-001-flame-position.txt").read_bytes()
+    if want.get("golden-run-1-001-flame-position.txt") != golden:
+        raise AssertionError("per-file golden table differs from tests/golden/")
+    if len({want[f"lib-run-{r}-001-flame-position.txt"] for r in (1, 2)}) != 2:
+        raise AssertionError("the two calibrations wrote the same table")
+
+    # ---- the main path: one library run, the counts set to 0 just before
+    cuda_band_profiles.launches = 0
+    cuda_tracking_scan.launches = 0
+    cuda_tracking_scan.videos = 0
+    outs, first_s, tables, paths, clipped, trace = run_library(lib, tmp / "lib-out")
+    counts = (cuda_band_profiles.launches, cuda_tracking_scan.launches,
+              cuda_tracking_scan.videos)
+    n_groups = len(trace) + 1  # the last shape group's trace, and the other group
+    log(f"library: {len(outs)} recordings, group paths {paths}, launches: band "
+        f"{counts[0]}, scan {counts[1]} over {counts[2]} videos; clip engaged: {clipped}; "
+        f"first run {first_s:.4f} s")
+    if len(outs) != len(names) or paths != ["fused"] * len(paths) or len(paths) != 2:
+        raise AssertionError(f"library run did not fuse both shape groups: {paths}")
+    if counts[0] < n_groups or counts[1] < n_groups or counts[2] <= counts[1]:
+        raise AssertionError(f"library launches {counts}: expected at least one per "
+                             f"group ({n_groups}) and a scan launch with V > 1")
+    if tables != want or tables.get("golden-run-1-001-flame-position.txt") != golden:
+        raise AssertionError("library tables differ from the per-file device tables")
+    summary = (tmp / "lib-out" / "run-summary.json").read_bytes()
+
+    # ---- resume: nothing to do, nothing touched
+    r_outs, _, r_tables, *_ = run_library(lib, tmp / "lib-out", resume=True)
+    if r_outs or r_tables != tables or \
+            (tmp / "lib-out" / "run-summary.json").read_bytes() != summary:
+        raise AssertionError("resume=True reprocessed or rewrote a finished library")
+
+    # ---- the switches: same tables on every route
+    for label, env, want_path, want_clip in (
+            ("HSIP_FUSED=0", dict(HSIP_FUSED="0"), "chunked", None),
+            ("HSIP_FUSED_GROUPS=1", dict(HSIP_FUSED_GROUPS="1"), "fused", None),
+            ("HSIP_CLIP_EMPTY=off", dict(HSIP_CLIP_EMPTY="off"), "fused", False),
+            ("HSIP_CLIP_EMPTY=1", dict(HSIP_CLIP_EMPTY="1"), "fused", True)):
+        _, wall, t, p, c, tr = run_library(lib, tmp / f"lib-{label}", **env)
+        log(f"library with {label}: paths {p}, clip engaged: {c}, "
+            f"{len(tr)} group(s) in the last shape group, {wall:.4f} s")
+        if p != [want_path] * 2 or (want_clip is not None and c != want_clip):
+            raise AssertionError(f"{label}: paths {p}, clipped {c}")
+        if t != tables:
+            raise AssertionError(f"{label}: tables differ from the fused run's")
+    log(f"library tables ({len(tables)} files) byte-identical to the per-file device "
+        f"run on the card, on the chunked path, with one group, with the clip off "
+        f"and forced; golden table equal to tests/golden/; resume processed nothing")
+
+    # ---- times: the per-file source runner against library mode, the 8
+    # full recordings, in turns; the first pair is the warm-up.
+    frames = 8 * N_FRAMES
+    loops, libs = [], []
+    for i in range(4):
+        loop = run_loop(lib8, tmp / f"t-loop-{i}")
+        # The run's own peak: over what the earlier phases still hold.
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run = run_library(lib8, tmp / f"t-lib-{i}")
+        peak = torch.cuda.max_memory_allocated() - held
+        if loop[2] != run[2] or len(run[2]) < 8:
+            raise AssertionError("library and per-file loop wrote different tables")
+        if i:
+            loops.append(loop[1])
+            libs.append((run[1], run[5], run[4], peak))
+    loop_s = statistics.median(loops)
+    lib_s, trace, clipped, peak = sorted(libs, key=lambda r: r[0])[1]
+    margin = band_margin(config.morphology_kernel_size, config.gaussian_sigma)
+    estimate = fused._fused_budget_bytes(8, N_FRAMES, WIDTH, 2 * margin + 1, 12,
+                                         fused._fused_group_count(8))
+    limit = fused._fused_limit_bytes(torch.device(GPU))
+    log(f"[{card}] per-file loop over 8 x {N_FRAMES} frames (process_video_source, "
+        f"backend=device): {frames / loop_s:.1f} frames/s, {loop_s:.4f} s "
+        f"(median of 3 warm runs: {', '.join(f'{x:.4f}' for x in loops)})")
+    log(f"[{card}] library over the same 8 (process_video_source_library): "
+        f"{frames / lib_s:.1f} frames/s, {lib_s:.4f} s (median of 3 warm runs: "
+        f"{', '.join(f'{x[0]:.4f}' for x in libs)}); {loop_s / lib_s:.2f}x the loop; "
+        f"clip engaged: {clipped}")
+    log(f"[{card}] library peak device memory {peak} bytes over the {held} held "
+        f"before the run; the fused budget's estimate {estimate} bytes "
+        f"({peak / estimate:.2f}x); limit {limit} bytes")
+    t_first = trace[0]["gather_start_t"]
+    for g, t in enumerate(trace):
+        stamps = ", ".join(f"{k[:-2]} {1e3 * (t[k] - t_first):.1f}" for k in (
+            "gather_start_t", "gather_end_t", "dispatch_t", "inputs_ready_t",
+            "finals_ready_t"))
+        log(f"[{card}] library group {g} (ms from the first gather): {stamps}")
+    # The host-side stages of one more library run, without the runner
+    # around it (no table files, no ledger).
+    stages = StageTimes()
+    with open_collection(str(lib8)) as coll:
+        t0 = time.perf_counter()
+        batch.track_collection_device(coll, config, source_config=source_config(tmp / "x"),
+                                      stage_times=stages)
+        torch.cuda.synchronize()
+        track_s = time.perf_counter() - t0
+    log(f"[{card}] library track_collection_device alone {track_s:.4f} s; "
+        f"StageTimes (host seconds) {stages.as_dict()}")
+    return counts, dict(loop_s=loop_s, lib_s=lib_s, peak=peak, estimate=estimate)
 
 
 def main() -> int:
@@ -536,6 +807,34 @@ def main() -> int:
         log(f"[{card}] scan kernel, combined, V={vs} M={n} W={WIDTH}: {scans_ms:.4f} ms "
             f"({scans_ms * 1e3 / n:.3f} us a step); bound {scans_bound_ms:.4f} ms; "
             f"whole-row copies {scans_rate / 1e12:.3f} TB/s")
+        # The library's shapes: the flat band of 2 and of 8 videos, each
+        # video's first row without a prior; the scan at V=2 (V=8 is above).
+        lib_ms = {}
+        for v in (2, 8):
+            nb = v * n
+            band_v = band_t.repeat(v, 1, 1)
+            flat = torch.arange(nb, dtype=torch.int32, device=dev)
+            prior_v = torch.where(flat % n > 0, flat - 1, -1).to(torch.int32)
+            ms = cuda_ms(lambda: cuda_band_profiles(band_v, prior_v, 5.0, k, sigma), 10)
+            b_ms, b_by = band_bound(nb, band.shape[1], WIDTH, k, len(gaussian_taps(sigma)))
+            lib_ms[f"band_ms_n{v}x{n}"] = ms
+            lib_ms[f"band_bound_ms_n{v}x{n}"] = b_ms
+            log(f"[{card}] band kernel, N={v}x{n} B={band.shape[1]} W={WIDTH} (a library "
+                f"group's flat batch): {ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
+                f"{b_ms / ms:.2%} of it")
+            del band_v, prior_v
+        f2 = tuple(t[:2].contiguous() for t in f4)
+        kw2 = dict(width=WIDTH, intensity_lines=f2[5], **{
+            key: (val[:2] if isinstance(val, np.ndarray) and val.ndim else val)
+            for key, val in four_video_params(params_for("combined")).items()})
+        scan2_res = cuda_tracking_scan(*f2[:5], **kw2)
+        scan2_bound_ms, _ = scan_bound(scan2_res, WIDTH, "combined")
+        scan2_ms = cuda_ms(lambda: cuda_tracking_scan(*f2[:5], **kw2), 5)
+        log(f"[{card}] scan kernel, combined, V=2 M={n} W={WIDTH}: {scan2_ms:.4f} ms "
+            f"({scan2_ms * 1e3 / n:.3f} us a step); bound {scan2_bound_ms:.4f} ms")
+        from hsip_tpu_torch.track.scan import track_video
+        from hsip_tpu_torch.utils import StageTimes
+
         for backend, first in (("gpu", gpu_first_s), ("device", dev_first_s)):
             runs = sorted((run_file(meta, tmp / f"t-{backend}-{i}", backend, GPU)[:2]
                            for i in range(3)), key=lambda r: r[1])
@@ -543,25 +842,47 @@ def main() -> int:
             log(f"[{card}] backend={backend}: {N_FRAMES / wall:.1f} frames/s "
                 f"(median of 3 warm runs, {wall:.4f} s: map {out.phase_timings['map_s']} s, "
                 f"scan {out.phase_timings['scan_s']} s; first run {first:.4f} s)")
-        del band_t, prior_t, f4, f8
+            # The same backend's stages, from track_video on the open video.
+            stages = StageTimes()
+            with open_video(str(meta)) as video:
+                t0 = time.perf_counter()
+                track_video(video, config, 0.000833333, 1.0159,
+                            scan="device" if backend == "device" else "host",
+                            stage_times=stages, device=dev)
+                torch.cuda.synchronize()
+                tv_s = time.perf_counter() - t0
+            log(f"[{card}] backend={backend}: track_video {tv_s:.4f} s, StageTimes "
+                f"(host seconds) {stages.as_dict()}")
+        del band_t, prior_t, f4, f8, f2, kw, kw2, kw8, kws, fi, s, g, em, hp, it
+        del scan_res, scan2_res, scan8_res, real
 
+        # ---- phase 7: library mode ----
+        lib_launches, lib_times = library_phase(tmp, meta, golden_meta, card, config)
+
+    log(json.dumps({"library": {
+        "frames": 8 * N_FRAMES, "loop_s": lib_times["loop_s"], "library_s": lib_times["lib_s"],
+        "peak_device_bytes": lib_times["peak"], "budget_estimate_bytes": lib_times["estimate"]}}))
+    log(card)
     # No single PyTorch call computes either kernel's function: library_ms
     # is null for both.
     print(json.dumps({"kernels": [
         {"name": "band_profiles", "route": "cuda",
          "source": "hsip_tpu_torch/csrc/band_profiles.cu",
          "replaces": "hsip_tpu/kernels/pallas_preprocess.py:131",
-         "launches": launches[0], "max_abs_err": band_err,
+         "launches": launches[0], "launches_library": lib_launches[0],
+         "max_abs_err": band_err,
          "ms": band_ms, "plain_ms": band_plain_ms,
          "bound_ms": band_bound_ms, "bound_by": band_bound_by,
-         "share_of_bound": band_bound_ms / band_ms, "library_ms": None},
+         "share_of_bound": band_bound_ms / band_ms, "library_ms": None, **lib_ms},
         {"name": "tracking_scan", "route": "cuda",
          "source": "hsip_tpu_torch/csrc/tracking_scan.cu",
          "replaces": "hsip_tpu/track/pallas_scan.py:571",
-         "launches": launches[1], "max_abs_err": scan_err,
+         "launches": launches[1], "launches_library": lib_launches[1],
+         "videos_library": lib_launches[2], "max_abs_err": scan_err,
          "ms": scan_ms, "plain_ms": scan_plain_ms,
          "bound_ms": scan_bound_ms, "bound_by": scan_bound_by,
          "share_of_bound": scan_bound_ms / scan_ms, "library_ms": None,
+         "ms_v2": scan2_ms, "bound_ms_v2": scan2_bound_ms,
          "ms_v8": scan8_ms, "bound_ms_v8": scan8_bound_ms,
          "v_per_sm": vs, "ms_v_per_sm": scans_ms, "bound_ms_v_per_sm": scans_bound_ms,
          "row_copy_tb_s_v_per_sm": scans_rate / 1e12},

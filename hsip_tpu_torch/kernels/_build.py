@@ -21,7 +21,8 @@ import threading
 import types
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_kernels", "load_kernels", "last_build_log"]
+__all__ = ["NVCC_FLAGS", "KernelError", "build_kernels", "load_kernels",
+           "last_build_log"]
 
 _PKG = Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "csrc"
@@ -59,6 +60,13 @@ _SIGNATURES = {
     "hsip_tracking_scan_ring_depth": [_I, _I],
 }
 
+
+class KernelError(RuntimeError):
+    """A CUDA kernel did not build, load or launch. The batch runners warn
+    about and skip a recording that fails, but never this: it is raised
+    through them."""
+
+
 _lock = threading.Lock()
 _lib = None
 _last_build_log = ""
@@ -71,7 +79,7 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found (CUDA toolkit needed to build the kernels)")
+    raise KernelError("nvcc not found (CUDA toolkit needed to build the kernels)")
 
 
 def _sources():
@@ -118,7 +126,7 @@ def build_kernels() -> str:
         os.replace(tmp, lib)  # atomic: another process never loads half a file
         stamp.write_text(digest + "\n")
     if failures:
-        raise RuntimeError("\n".join(failures))
+        raise KernelError("\n".join(failures))
     return "".join(logs)
 
 
@@ -140,7 +148,7 @@ def load_kernels() -> types.SimpleNamespace:
                         fns[name] = fn
             missing = sorted(set(_SIGNATURES) - set(fns))
             if missing:
-                raise RuntimeError(f"kernel entry points not found: {missing}")
+                raise KernelError(f"kernel entry points not found: {missing}")
             _lib = types.SimpleNamespace(**fns)
         return _lib
 

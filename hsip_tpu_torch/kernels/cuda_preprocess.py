@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ._build import KernelError
 from .preprocess import band_margin, diff_profiles_from_band, gaussian_taps
 
 __all__ = ["band_profiles_plain", "cuda_band_profiles", "band_profiles_probe",
@@ -61,7 +62,7 @@ def band_plan(n: int, width: int, morphology_kernel_size: int = 3,
     if err == _TOO_LARGE:
         return None
     if err != 0:
-        raise RuntimeError(f"band_profiles plan failed (cudaError {err})")
+        raise KernelError(f"band_profiles plan failed (cudaError {err})")
     return BandPlan(*out)
 
 
@@ -167,5 +168,5 @@ def _launch(entry, band, prior_index, frame_diff_threshold,
             f"fit the band kernel's tile and shared memory"
         )
     if err != 0:
-        raise RuntimeError(f"band_profiles kernel launch failed (cudaError {err})")
+        raise KernelError(f"band_profiles kernel launch failed (cudaError {err})")
     return outs

@@ -1,11 +1,15 @@
-"""Per-file pipeline: track one recording and write its result tables.
+"""Pipeline orchestration: per-file and per-source processing, result tables.
 
-Counterpart of :func:`hsip_tpu.pipeline.process_video_file`. The table
-writer (:func:`write_position_results`, :func:`_write_ddt_split_tables`),
-the exact float64 backend (:func:`_track_video_exact`) and
-:func:`_warn_unmatched_calibration` are copies of the JAX package's, so the
-tables are byte-identical; the map phase and the device scan run on a
-torch ``device``.
+Counterpart of :mod:`hsip_tpu.pipeline`: :func:`process_video_file`, the
+per-file source runner :func:`process_video_source` and library mode
+:func:`process_video_source_library` (every recording of a source through
+one batched scan per shape group, :mod:`.track.batch`), the two runners
+sharing the checkpoint and run-summary ledger (:class:`_SourceLedger`). The
+table writer (:func:`write_position_results`,
+:func:`_write_ddt_split_tables`), the exact float64 backend
+(:func:`_track_video_exact`), the ledger and the failure cache are copies
+of the JAX package's, so the tables are byte-identical; the map phase and
+the device scans run on a torch ``device``.
 """
 
 from __future__ import annotations
@@ -16,16 +20,21 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from . import open_video
+from .kernels._build import KernelError
 from .kernels.reference import is_empty_frame, subtract_scalar_background
 from .track.config import FlameDetectorConfig, VideoSourceConfig
 from .track.host_scan import MIN_SIGNAL_FRACTION, NOISE_THRESHOLD_FLOOR, TrackingOutput
 from .track.scan import track_video
 from .track.tracker import FlameDetector
 from .utils.backend import resolve_device
+from .utils.logging import get_logger
 from .video import SpatialCalibration
 
-__all__ = ["process_video_file", "write_position_results", "BACKENDS",
-           "RESULT_COLUMNS"]
+__all__ = ["process_video_file", "process_video_source",
+           "process_video_source_library", "write_position_results",
+           "BACKENDS", "RESULT_COLUMNS"]
+
+_log = get_logger("pipeline")
 
 BACKENDS = ("gpu", "device", "exact")
 
@@ -381,6 +390,160 @@ def _track_video_exact(
     )
 
 
+class _SourceLedger:
+    """Checkpoint + run-summary scaffolding shared by the batch runners.
+
+    Both :func:`process_video_source` and
+    :func:`process_video_source_library` need identical crash-safe batch
+    semantics: a rank-scoped :class:`BatchCheckpoint` ledger (cleared on
+    fresh runs, consulted on ``resume``), a barrier so all ranks finish
+    ledger setup before anyone marks progress, and a cumulative
+    ``run-summary.json``. Keeping them in one helper means a fix to the
+    ledger semantics lands in both runners at once.
+    """
+
+    def __init__(self, config, detector_config, backend_tag: str,
+                 processor, resume: bool):
+        import hashlib
+
+        from .utils.checkpoint import BatchCheckpoint
+        from .utils.summary import RunSummary
+
+        self._config = config
+        self._processor = processor
+        self._resume = resume
+        self._rank = processor.rank if processor is not None else 0
+        self.checkpoint = None
+        self.summary = None
+        if config.output_dir:
+            cfg_hash = hashlib.sha256(
+                repr((config, detector_config, backend_tag)).encode()
+            ).hexdigest()[:16]
+            self.checkpoint = BatchCheckpoint(
+                config.output_dir, run_config_hash=cfg_hash, rank=self._rank
+            )
+            if not resume:
+                self.checkpoint.clear()
+            if processor is not None:
+                # All ranks finish ledger setup before anyone marks progress.
+                processor.barrier()
+            self.summary = RunSummary(
+                config.name,
+                config_echo={"source": config, "detector": detector_config,
+                             "backend": backend_tag},
+            )
+            if resume:
+                # Accumulate onto the previous run's records: files skipped
+                # via the checkpoint keep their entries; retried files
+                # replace theirs.
+                self.summary.seed_from(config.output_dir, rank=self._rank)
+
+    def ledger_key(self, path) -> str:
+        """Per-recording ledger key: the path relative to the source's
+        video_path. Discovery is recursive, so two recordings with the
+        same basename can live in different subdirectories — keyed by
+        basename, a resume run would skip the second as already done
+        (while a fresh run processes both, last table wins). For flat
+        layouts the relative path IS the basename, so existing ledgers
+        stay valid; paths outside the source root fall back to basename.
+        """
+        p = Path(path)
+        try:
+            return p.resolve().relative_to(
+                Path(self._config.video_path).resolve()
+            ).as_posix()
+        except (ValueError, OSError):
+            return p.name
+
+    def filter_pending(self, files, announce=None):
+        """Drop files already complete in the ledger (resume runs only)."""
+        if not (self._resume and self.checkpoint is not None):
+            return list(files)
+        kept = []
+        for f in files:
+            if self.checkpoint.is_done(self.ledger_key(f)):
+                if announce is not None:
+                    announce(f)
+            else:
+                kept.append(f)
+        return kept
+
+    def add_failure(self, name, exc):
+        if self.summary is not None:
+            self.summary.add_failure(name, exc)
+
+    def record(self, filepath, output, wall_s: float):
+        """Mark a recording complete and add its summary entry.
+
+        The ledger keys on the video_path-relative path; the summary and
+        calibration lookup use the basename (calibration patterns match
+        on the FILENAME — reference semantics)."""
+        name = Path(filepath).name
+        if self.checkpoint is not None:
+            self.checkpoint.mark_done(
+                self.ledger_key(filepath), rows=len(output.rows)
+            )
+        if self.summary is not None:
+            cal, off = self._config.get_calibration_for_file(name)
+            self.summary.add_file(
+                name, output, cal, off, wall_s, output.total_frames
+            )
+
+    def finish(self):
+        """Write the cumulative summary (if dirty) and sync ranks."""
+        if (self.summary is not None and self.summary.dirty
+                and self._config.output_dir):
+            # Resume runs are seeded from the previous summary above, so the
+            # write is cumulative; a run that recorded nothing (everything
+            # checkpoint-skipped) leaves the previous summary untouched.
+            self.summary.write(self._config.output_dir, rank=self._rank)
+        if self._processor is not None:
+            self._processor.barrier()
+
+
+def _file_fingerprint(path: Path):
+    st = path.stat()
+    return (st.st_mtime_ns, st.st_size)
+
+
+def _skip_known_failure(failure_cache, path: Path) -> bool:
+    """True when ``path`` failed before and is unchanged since (serve mode).
+
+    Watch mode retries every not-yet-completed recording each poll pass; a
+    permanently corrupt file would otherwise fail (and warn) forever at the
+    poll interval. A failed file is retried only once its mtime/size change.
+    """
+    if failure_cache is None:
+        return False
+    fp = failure_cache.get(str(path))
+    if fp is None:
+        return False
+    try:
+        return _file_fingerprint(path) == fp
+    except OSError:
+        return True  # vanished since the failure — nothing to retry
+
+
+def _pre_attempt_fingerprint(failure_cache, path: Path):
+    """Fingerprint taken BEFORE processing: a file still being copied can
+    finish (and change) DURING a failed attempt — stamping it afterwards
+    would freeze the completed file's fingerprint and skip it forever.
+    With the pre-attempt stamp, any change since the failed open makes the
+    next poll's comparison differ and the file is retried."""
+    if failure_cache is None:
+        return None
+    try:
+        return _file_fingerprint(path)
+    except OSError:
+        return None
+
+
+def _record_failure_fingerprint(failure_cache, path: Path, fingerprint) -> None:
+    if failure_cache is None or fingerprint is None:
+        return
+    failure_cache[str(path)] = fingerprint
+
+
 def _warn_unmatched_calibration(config, filename: str) -> None:
     """Warn when file_calibrations exist but none matches this recording.
 
@@ -396,3 +559,293 @@ def _warn_unmatched_calibration(config, filename: str) -> None:
             f"Warning: no file_calibration entry matches {filename}; "
             f"using source default ({cal} m/px, offset {off} m)"
         )
+
+
+def _discover_source_files(config, processor, verbose, is_root,
+                           mode_banner=""):
+    """Shared batch-runner prologue: banner, rglob discovery, and
+    per-process distribution. A discovery/distribution fix here lands in
+    BOTH runners.
+
+    Returns ``None`` when the source has nothing at all (no path / no
+    recordings — a state every process observes identically), or this
+    process's file list after distribution. The distinction matters under a
+    processor: a rank whose SUBSET is empty (fewer files than ranks) gets
+    ``[]`` and must still run the ledger path — its barriers have to align
+    with the ranks that did receive files; returning early would pair its
+    next barrier with a different pass's and desynchronize the whole run.
+    """
+    if verbose and is_root:
+        print(f"\n{'=' * 60}")
+        print(f"Processing{mode_banner}: {config.name}")
+        print(f"Video path: {config.video_path}")
+        print(f"Default calibration: {config.calibration} m/pixel")
+        print(f"{'=' * 60}")
+    if not config.video_path:
+        return None
+    cihx_files = sorted(Path(config.video_path).rglob("*.cihx"))
+    if not cihx_files:
+        if verbose and is_root:
+            print(f"No CIHX files found in {config.video_path}")
+        return None
+    if processor is not None:
+        my_indices = set(processor.distribute_indices(len(cihx_files)))
+        cihx_files = [f for i, f in enumerate(cihx_files) if i in my_indices]
+    return cihx_files
+
+
+def process_video_source(
+    config: VideoSourceConfig,
+    detector_config: Optional[FlameDetectorConfig] = None,
+    backend: str = "gpu",
+    processor=None,
+    verbose: bool = True,
+    resume: bool = False,
+    failure_cache: Optional[dict] = None,
+    device=None,
+) -> List[TrackingOutput]:
+    """Process every ``*.cihx`` under a source's video path, each through
+    :func:`process_video_file` with ``backend`` on ``device`` (``None``
+    means ``cuda``; without a card the call raises before any file is
+    touched).
+
+    With a ``processor`` (any object with ``rank``, ``is_root``,
+    ``distribute_indices`` and ``barrier``), whole videos are distributed
+    across processes (video-axis data parallelism — each video's scan stays
+    serial-identical); outputs are written by the owning process.
+
+    ``resume=True`` skips recordings already marked complete in the output
+    directory's checkpoint ledger (crash-safe batch restarts); a
+    ``run-summary.json`` is written either way.
+
+    ``failure_cache`` (serve mode) is a caller-held dict mapping failed
+    recording paths to their mtime/size fingerprints: unchanged failures are
+    skipped on later passes instead of warning at every poll.
+
+    A recording that cannot be read or processed is warned about and left
+    for ``resume``; a kernel that does not build or launch
+    (:class:`~hsip_tpu_torch.kernels._build.KernelError`) is raised.
+    """
+    import time as _time
+
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"Unknown backend: {backend!r} (expected 'gpu', 'device' or 'exact')"
+        )
+    dev = resolve_device(device) if backend != "exact" else None
+    is_root = processor is None or processor.is_root
+    cihx_files = _discover_source_files(config, processor, verbose, is_root)
+    if cihx_files is None:
+        return []  # globally nothing — every rank takes this branch
+
+    ledger = _SourceLedger(config, detector_config, backend, processor, resume)
+
+    def _announce_skip(f):
+        if verbose and is_root:
+            print(f"  Skipping {f.name} (already complete)")
+
+    outputs = []
+    try:
+        for cihx_file in ledger.filter_pending(cihx_files, _announce_skip):
+            if _skip_known_failure(failure_cache, cihx_file):
+                continue
+            fingerprint = _pre_attempt_fingerprint(failure_cache, cihx_file)
+            t0 = _time.perf_counter()
+            try:
+                output = process_video_file(
+                    cihx_file,
+                    config,
+                    detector_config,
+                    backend=backend,
+                    verbose=verbose and is_root,
+                    device=dev,
+                )
+            except KernelError:
+                raise
+            except Exception as exc:
+                # Batch semantics match VideoCollection.from_directory: one
+                # unreadable or corrupt recording must not abort the batch
+                # run. Warn, record in the summary, leave it unmarked
+                # in the checkpoint so --resume retries it.
+                print(f"Warning: Could not process {cihx_file}: {exc}")
+                _log.warning("failed %s: %s", cihx_file.name, exc)
+                ledger.add_failure(cihx_file.name, exc)
+                _record_failure_fingerprint(failure_cache, cihx_file,
+                                            fingerprint)
+                continue
+            if failure_cache is not None:
+                failure_cache.pop(str(cihx_file), None)
+            wall = _time.perf_counter() - t0
+            _log.debug(
+                "processed %s: rows=%d empty=%d break=%s wall=%.3fs",
+                cihx_file.name, len(output.rows), output.empty_frame_count,
+                output.break_reason, wall,
+            )
+            outputs.append(output)
+            ledger.record(cihx_file, output, wall)
+    finally:
+        # Always write the summary and reach the rank barrier (a raise here
+        # would otherwise hang the other ranks in finish()'s barrier).
+        ledger.finish()
+    return outputs
+
+
+def process_video_source_library(
+    config: VideoSourceConfig,
+    detector_config: Optional[FlameDetectorConfig] = None,
+    processor=None,
+    verbose: bool = True,
+    resume: bool = False,
+    chunk_size: Optional[int] = None,
+    mesh=None,
+    failure_cache: Optional[dict] = None,
+    device=None,
+) -> List[TrackingOutput]:
+    """Library mode: track EVERY recording of a source with batched scans
+    on ``device`` (``None`` means ``cuda``; without a card the call raises).
+
+    The throughput path for many-file runs: all recordings sharing a frame
+    shape batch into one on-device scan (one program per shape group
+    instead of per file, :func:`hsip_tpu_torch.track.batch.
+    track_collection_device`), with identical rows and tables to running
+    ``backend='device'`` per file. Table writing, per-file calibration
+    lookup, checkpoint/resume, and run summaries match
+    :func:`process_video_source`. With ``processor``, whole recordings are
+    distributed across processes first, then each process batches its own
+    subset. In the run summary, library-mode ``wall_s`` is the batch wall
+    clock apportioned evenly over the batch's recordings.
+
+    Figures (``save_frame_images`` / ``save_stacked_sequences``) ARE
+    produced: the throughput scan returns positions only, not the per-frame
+    detector internals a 12-panel figure draws (candidate markers, search
+    bounds, spline prediction), so after the batched scan each requesting
+    recording re-runs the per-file figure path (:func:`process_video_file`
+    with ``write_tables=False`` — the SAME functions the per-file runner
+    uses, so figures are data-identical to per-file mode by construction).
+    The replay costs one map phase per video; table throughput is
+    unaffected when figures are off.
+
+    ``mesh`` (sharding each shape group's video axis across devices) is
+    not ported: anything but ``None`` raises ``NotImplementedError``.
+    """
+    import time as _time
+
+    from .track.batch import track_collection_device
+
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded library mode is not ported yet")
+    dev = resolve_device(device)
+    detector_config = detector_config or FlameDetectorConfig()
+    is_root = processor is None or processor.is_root
+    cihx_files = _discover_source_files(
+        config, processor, verbose, is_root, mode_banner=" (library mode)"
+    )
+    if cihx_files is None:
+        return []  # globally nothing — every rank takes this branch
+
+    ledger = _SourceLedger(config, detector_config, "library", processor,
+                           resume)
+
+    def _announce_skip(f):
+        if verbose and is_root:
+            print(f"  Skipping {f.name} (already complete)")
+
+    cihx_files = ledger.filter_pending(cihx_files, _announce_skip)
+
+    # Open with the collection layer's warn-and-skip batch semantics: one
+    # corrupt recording must not abort the library run.
+    from .collection import VideoCollection
+    from .video import PhotonVideo
+
+    outputs: List[TrackingOutput] = []
+    try:
+        videos = []
+        for f in cihx_files:
+            if _skip_known_failure(failure_cache, f):
+                continue
+            fingerprint = _pre_attempt_fingerprint(failure_cache, f)
+            _warn_unmatched_calibration(config, f.name)
+            try:
+                videos.append(
+                    PhotonVideo(str(f), trigger_frame=config.trigger_frame)
+                )
+                if failure_cache is not None:
+                    failure_cache.pop(str(f), None)
+            except Exception as exc:
+                print(f"Warning: Could not load {f}: {exc}")
+                _log.warning("failed to open %s: %s", f.name, exc)
+                ledger.add_failure(f.name, exc)
+                _record_failure_fingerprint(failure_cache, f, fingerprint)
+
+        if videos:
+            collection = VideoCollection(videos)
+            try:
+                t0 = _time.perf_counter()
+                outputs = track_collection_device(
+                    collection,
+                    detector_config,
+                    source_config=config,
+                    use_absolute_time=config.use_absolute_time,
+                    chunk_size=chunk_size,
+                    mesh=mesh,
+                    device=dev,
+                )
+                wall_each = (_time.perf_counter() - t0) / max(1, len(videos))
+
+                output_dir = (
+                    Path(config.output_dir) if config.output_dir else None
+                )
+                if output_dir is not None:
+                    output_dir.mkdir(parents=True, exist_ok=True)
+                for video, output in zip(videos, outputs):
+                    # Per-video guard, same contract as the per-file runner:
+                    # one recording's write failure (disk quota, permission)
+                    # must not lose the already-computed tables of the rest.
+                    try:
+                        stem = video.filepath.stem
+                        if verbose and is_root:
+                            print(f"\n{video.filepath.name}: "
+                                  f"{len(output.rows)} rows, "
+                                  f"{output.empty_frame_count} empty frames "
+                                  f"skipped")
+                            if output.tracker.ddt_detected:
+                                print(f"  *** DDT DETECTED at frame "
+                                      f"{output.tracker.ddt_frame} ***")
+                        if output_dir is not None and output.rows:
+                            _write_ddt_split_tables(
+                                output, output_dir, stem, verbose and is_root
+                            )
+                        ledger.record(video.filepath, output, wall_each)
+                    except Exception as exc:
+                        print(f"Warning: Could not write results for "
+                              f"{video.filepath.name}: {exc}")
+                        _log.warning("failed to write %s: %s",
+                                     video.filepath.name, exc)
+                        ledger.add_failure(video.filepath.name, exc)
+
+                # Figures: per-video replay of the per-file figure path
+                # (see docstring). Each rank renders its own subset.
+                if config.save_frame_images or config.save_stacked_sequences:
+                    for video in videos:
+                        try:
+                            process_video_file(
+                                video.filepath, config, detector_config,
+                                backend="gpu", verbose=False,
+                                write_tables=False, device=dev,
+                            )
+                            if verbose and is_root:
+                                print(f"  Figures: {video.filepath.name}")
+                        except KernelError:
+                            raise
+                        except Exception as exc:
+                            print(f"Warning: Could not render figures for "
+                                  f"{video.filepath.name}: {exc}")
+                            _log.warning("failed figures for %s: %s",
+                                         video.filepath.name, exc)
+            finally:
+                collection.close_all()
+    finally:
+        # Always write the summary and reach the rank barrier — otherwise a
+        # failure on one rank leaves the others hung in finish()'s barrier.
+        ledger.finish()
+    return outputs

@@ -1,23 +1,54 @@
-"""Table reconstruction from device-scan positions (pure numpy).
+"""Collection-scale tracking: many videos, one scan per shape group.
 
-Copies of :class:`hsip_tpu.track.batch.ScanHistory` and
-:func:`hsip_tpu.track.batch.build_device_scan_output`: they are plain
-numpy, but their original module imports JAX at its top. The scan emits
-integer positions; the exit / velocity-drop truncation, the DDT latch and
-the row labels are recomputed here in float64, exactly as the host scan
-decides them.
+Counterpart of :mod:`hsip_tpu.track.batch`. :func:`track_collection_device`
+groups a collection's videos by frame shape and tracks each group on a
+torch ``device``: through the fused group program of :mod:`.fused` when its
+preconditions hold, else through the general chunked path here (a per-video
+map phase, profiles padded to a common length and stacked, one scan over
+the video axis). On a CUDA device the scan is the CUDA tracking-scan kernel
+and the band chain the CUDA band kernel; on a CPU device their plain
+PyTorch versions run. There is no other choice of scan and no degrade from
+one to the other.
+
+:class:`ScanHistory` and :func:`build_device_scan_output` are plain numpy
+copies of the JAX package's: the scan emits integer positions; the exit /
+velocity-drop truncation, the DDT latch and the row labels are recomputed
+here in float64, exactly as the host scan decides them.
 """
 
 from __future__ import annotations
 
-from .host_scan import TrackingOutput
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .config import FlameDetectorConfig, VideoSourceConfig
+from .host_scan import MIN_SIGNAL_FRACTION, FrameProfiles, TrackingOutput
+from .tracker import FlameTracker
 from .velocity import (
     ddt_frame_from_velocities,
     iter_velocity_entries,
     velocities_from_positions,
 )
 
-__all__ = ["ScanHistory", "build_device_scan_output"]
+__all__ = ["track_collection_device", "ScanHistory", "build_device_scan_output",
+           "LAST_GROUP_PATHS", "MAX_GROUP_BYTES"]
+
+# Introspection: which library path each uniform-shape group took on the
+# most recent track_collection_device call — "fused" (one device program)
+# or "chunked" (general map-then-scan). A silent fall to the chunked path
+# would pass parity while losing what the fused path is for, so callers
+# that care assert on this.
+LAST_GROUP_PATHS: List[str] = []
+
+# Default bound on a sub-batch's padded line sets (see
+# :func:`_split_by_footprint`), chosen for the NVIDIA H100 (80 GB): 4 GiB
+# of line sets. At the default band of 19 rows the fused program of such a
+# sub-batch holds about 8 times that (its packed payload and float32 band
+# beside the lines), which stays under the fused path's budget of half the
+# card.
+MAX_GROUP_BYTES = 4 << 30
 
 
 class ScanHistory:
@@ -157,3 +188,289 @@ def build_device_scan_output(
         break_reason=stop_reason,
         total_frames=total_frames,
     )
+
+
+def track_collection_device(
+    collection,
+    config: Optional[FlameDetectorConfig] = None,
+    source_config: Optional[VideoSourceConfig] = None,
+    use_absolute_time: bool = True,
+    chunk_size: Optional[int] = None,
+    mesh=None,
+    video_axis: str = "video",
+    max_group_bytes: int = MAX_GROUP_BYTES,
+    stage_times=None,
+    device=None,
+) -> List[TrackingOutput]:
+    """Track every video of a collection with batched device scans on
+    ``device`` (``None`` means ``cuda``).
+
+    Videos sharing (H, W) batch into ONE scan over the video axis; a
+    mixed-shape collection (e.g. two camera models in one library) runs one
+    scan per shape group, results returned in collection order. Per-video
+    calibration/offset come from ``source_config.get_calibration_for_file``
+    (defaults 1.0 / 0.0). Returns one :class:`TrackingOutput` per video,
+    identical to running the serial host scan on each.
+
+    Each shape group's device-resident profile footprint (videos are padded
+    to the group's longest frame count) is bounded by ``max_group_bytes``:
+    oversized groups split into sub-batches, ordered by frame count so
+    padding stays minimal — a 500-video library cannot overflow the card,
+    and one 100k-frame recording doesn't pad fifty 2k-frame ones to 100k
+    steps. Per-video results are independent, so sub-batching never changes
+    output tables.
+
+    ``mesh`` (sharding the video axis over devices) is not ported.
+
+    ``stage_times`` (a :class:`~hsip_tpu_torch.utils.StageTimes`)
+    accumulates host wall-clock per pipeline stage across ALL
+    videos/sub-batches — staging stages from the map phase plus ``collate``
+    (pad/stack), ``scan_dispatch``, ``d2h`` (the blocking device fetch) and
+    ``tables`` (float64 host reconstruction). Map-pool threads overlap, so
+    stage sums can exceed end-to-end wall-clock (see StageTimes).
+    """
+    from ..utils.backend import resolve_device
+
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded library mode is not ported yet")
+    dev = resolve_device(device)
+    config = config or FlameDetectorConfig()
+    LAST_GROUP_PATHS.clear()
+    videos = list(collection)
+    if not videos:
+        return []
+    groups: dict = {}
+    for idx, video in enumerate(videos):
+        groups.setdefault(video.frame_shape, []).append(idx)
+    outputs: List[Optional[TrackingOutput]] = [None] * len(videos)
+    for (_h, w), idxs in groups.items():
+        for sub in _split_by_footprint(idxs, videos, w, max_group_bytes):
+            group_outputs = _track_uniform_videos(
+                [videos[i] for i in sub], w, config, source_config,
+                use_absolute_time, chunk_size, mesh, video_axis,
+                stage_times=stage_times, device=dev,
+            )
+            for i, out in zip(sub, group_outputs):
+                outputs[i] = out
+    return outputs  # type: ignore[return-value]
+
+
+# The scan holds up to 4 float32 (V, n_max, W) line sets per sub-batch
+# (sobel, gradient, intensity, raw).
+_PROFILE_ARRAYS = 4
+
+
+def _split_by_footprint(idxs, videos, w: int, max_group_bytes: int):
+    """Split a shape group into sub-batches whose padded profile footprint
+    (V * n_max * W * 4 B * 4 arrays) stays under ``max_group_bytes``.
+
+    Ordered by frame count, so each sub-batch's ``n_max`` is its last
+    member's length and short recordings never pad to a long one's count.
+    A single video over the budget still runs (sub-batch of one).
+    """
+    by_len = sorted(idxs, key=lambda i: len(videos[i]))
+    batches, current = [], []
+    for i in by_len:
+        n_max = len(videos[i])  # ascending order: the max of current + [i]
+        if current and (
+            (len(current) + 1) * n_max * w * 4 * _PROFILE_ARRAYS
+            > max_group_bytes
+        ):
+            batches.append(current)
+            current = []
+        current.append(i)
+    if current:
+        batches.append(current)
+    return batches
+
+
+def _track_uniform_videos(
+    videos,
+    w: int,
+    config: FlameDetectorConfig,
+    source_config: Optional[VideoSourceConfig],
+    use_absolute_time: bool,
+    chunk_size: Optional[int],
+    mesh,
+    video_axis: str,
+    stage_times=None,
+    device=None,
+) -> List[TrackingOutput]:
+    """One device scan over videos sharing a frame shape (the scan
+    consumes width-``w`` profiles; height only shapes the map phase)."""
+    from ..utils.backend import resolve_device
+    from ..utils.profiling import StageTimes
+    from .cuda_scan import cuda_tracking_scan
+    from .device_scan import tracking_scan_plain
+    from .fused import track_uniform_videos_fused
+    from .scan import compute_profiles_batched, scan_params
+
+    dev = resolve_device(device)
+    if stage_times is None:
+        stage_times = StageTimes()  # unobserved; keeps the code one-path
+    method = source_config.detection_method if source_config else "combined"
+    use_frame_diff = source_config.use_frame_diff if source_config else True
+
+    # --- fused fast path: the whole group as ONE device program ---
+    # (band-staged groups without skip lists; falls through to the general
+    # chunked path when preconditions fail — track/fused.py.)
+    fused = track_uniform_videos_fused(
+        videos, w, config, source_config, use_absolute_time,
+        stage_times=stage_times, mesh=mesh, video_axis=video_axis, device=dev,
+    )
+    if fused is not None:
+        LAST_GROUP_PATHS.append("fused")
+        return fused
+    LAST_GROUP_PATHS.append("chunked")
+
+    # --- map phase per video (chunked, packed on-device decode) ---
+    # A small thread pool overlaps one video's HOST work (native counts +
+    # band gather, both GIL-releasing) with another's transfer and device
+    # work. Order is preserved via executor.map.
+    def _map_one(video) -> FrameProfiles:
+        bg = float(np.max(video[0]))
+        read_packed, read_band, count_fn, storage_depth = video.staging_paths()
+        cs = chunk_size or (4096 if read_band is not None else 256)
+        return compute_profiles_batched(
+            read_batch=video.read_batch,
+            n_frames=len(video),
+            frame_shape=video.frame_shape,
+            background_scalar=bg,
+            config=config,
+            skip_frames=(
+                source_config.skip_frames if source_config is not None else ()
+            ),
+            chunk_size=cs,
+            read_packed=read_packed,
+            read_band=read_band,
+            count_fn=count_fn,
+            read_band_counts=(
+                video.band_bytes_and_counts if read_band is not None else None
+            ),
+            band_bit_depth=storage_depth,
+            keep_device=True,
+            stage_times=stage_times,
+            device=dev,
+        )
+
+    if len(videos) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=min(4, len(videos))) as pool:
+            profiles: List[FrameProfiles] = list(pool.map(_map_one, videos))
+    else:
+        profiles = [_map_one(v) for v in videos]
+
+    # --- pad to a common step count; padding rows are 'empty' (no-ops) ---
+    with stage_times.stage("collate"):
+        n_max = max(p.frame_indices.size for p in profiles)
+        V = len(videos)
+        fi = np.zeros((V, n_max), dtype=np.int32)
+        empty = np.ones((V, n_max), dtype=bool)
+        has_prior = np.ones((V, n_max), dtype=bool)
+        cals = np.zeros(V, dtype=np.float32)
+        fpss = np.zeros(V, dtype=np.float32)
+        max_disps = np.zeros(V, dtype=np.int32)
+
+        # Profile lines stay DEVICE-resident: each video's (m, W) stack
+        # lands in its rows of one zeroed (V, n_max, W) tensor. Only the
+        # line sets the detection method reads are stacked; the scan takes
+        # None for the others.
+        def _stacked():
+            return torch.zeros((V, n_max, w), dtype=torch.float32, device=dev)
+
+        sob = grad = intens = None
+        if method == "combined":
+            sob, grad = _stacked(), _stacked()
+        else:
+            intens = _stacked()
+        calibs: List[Tuple[float, float]] = []
+        for i, (video, p) in enumerate(zip(videos, profiles)):
+            m = p.frame_indices.size
+            fi[i, :m] = p.frame_indices
+            fi[i, m:] = (p.frame_indices[-1] if m else 0) + np.arange(1, n_max - m + 1)
+            intens_i, has_prior_i = p.select_intensity(method, use_frame_diff)
+            if method == "combined":
+                sob[i, :m] = p.sobel_lines
+                grad[i, :m] = p.gradient_lines
+            else:
+                intens[i, :m] = intens_i
+            empty[i, :m] = p.signal_counts / p.total_pixels < MIN_SIGNAL_FRACTION
+            has_prior[i, :m] = has_prior_i
+            if source_config is not None:
+                cal, off = source_config.get_calibration_for_file(video.filepath.name)
+            else:
+                cal, off = 1.0, 0.0
+            calibs.append((cal, off))
+            cals[i] = cal
+            fpss[i] = video.frame_rate
+            max_disps[i] = FlameTracker(config, video.frame_rate, cal).max_displacement_px
+
+    if n_max == 0:  # every frame of every video skipped: nothing to scan
+        from .fused import _FusedResult
+
+        return _outputs_from_scan(
+            _FusedResult(np.zeros((V, 0), np.int32)), videos, profiles, fi,
+            empty, calibs, use_absolute_time, config, stage_times=stage_times,
+        )
+
+    # --- one device scan over the whole video axis: the CUDA kernel on a
+    # CUDA device, the plain PyTorch scan on the CPU ---
+    params = scan_params(config, 1.0, 1.0, method)
+    params.update(calibration=cals, frame_rate=fpss, max_displacement_px=max_disps)
+    scan = tracking_scan_plain if dev.type == "cpu" else cuda_tracking_scan
+    with stage_times.stage("scan_dispatch"):
+        res = scan(
+            torch.from_numpy(fi).to(dev), sob, grad,
+            torch.from_numpy(empty).to(dev), torch.from_numpy(has_prior).to(dev),
+            width=w, intensity_lines=intens, **params,
+        )
+    return _outputs_from_scan(
+        res, videos, profiles, fi, empty, calibs, use_absolute_time, config,
+        stage_times=stage_times,
+    )
+
+
+def _outputs_from_scan(res, videos, profiles, fi, empty, calibs,
+                       use_absolute_time,
+                       config: FlameDetectorConfig,
+                       stage_times=None) -> List[TrackingOutput]:
+    """Host reconstruction shared by the fused and chunked paths: rows,
+    float64 velocities, and the authoritative float64 truncation/DDT
+    decisions per video — the scans emit integer positions (their f32 stop
+    latches are advisory; see build_device_scan_output).
+    ``res.final_position`` is a (V, n) tensor on any device or a numpy
+    array already on the host."""
+    from ..utils.profiling import StageTimes
+
+    if stage_times is None:
+        stage_times = StageTimes()
+    outputs: List[TrackingOutput] = []
+    # The ONE blocking device fetch of the scan results: every device wait
+    # the free-running map phase hid lands here.
+    with stage_times.stage("d2h"):
+        finals = res.final_position
+        if isinstance(finals, torch.Tensor):
+            finals = finals.cpu().numpy()
+
+    with stage_times.stage("tables"):
+        for i, (video, p) in enumerate(zip(videos, profiles)):
+            m = p.frame_indices.size
+            cal, off = calibs[i]
+            time_fn = video.get_absolute_time if use_absolute_time else video.get_time
+            outputs.append(
+                build_device_scan_output(
+                    fi[i, :m],
+                    empty[i, :m],
+                    finals[i, :m],
+                    width=p.width,
+                    exit_margin_px=config.exit_margin_px,
+                    ddt_velocity_jump=config.ddt_velocity_jump_m_s,
+                    frame_rate=video.frame_rate,
+                    calibration=cal,
+                    position_offset=off,
+                    time_fn=time_fn,
+                    total_frames=len(video),
+                )
+            )
+    return outputs

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels._build import KernelError
 from .device_scan import METHODS, DeviceScanResult
 
 __all__ = ["cuda_tracking_scan", "ring_depth"]
@@ -151,9 +152,12 @@ def cuda_tracking_scan(
             stream,
         )
     if err != 0:
-        raise RuntimeError(f"tracking_scan kernel launch failed (cudaError {err})")
+        raise KernelError(f"tracking_scan kernel launch failed (cudaError {err})")
     cuda_tracking_scan.launches += 1
+    cuda_tracking_scan.videos += v
     return res
 
 
 cuda_tracking_scan.launches = 0
+# Videos over all launches: more than ``launches`` when a launch took V > 1.
+cuda_tracking_scan.videos = 0

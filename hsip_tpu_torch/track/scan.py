@@ -34,6 +34,7 @@ from .batch import ScanHistory, build_device_scan_output
 from .config import FlameDetectorConfig
 from .cuda_scan import cuda_tracking_scan
 from .device_scan import tracking_scan_plain
+from .fused import release_staging, take_staging
 from .host_scan import (
     MIN_SIGNAL_FRACTION,
     NOISE_THRESHOLD_FLOOR,
@@ -65,14 +66,21 @@ class MapProfiles(FrameProfiles):
 
 
 def _stage(host: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``: through a pinned buffer and an
-    asynchronous copy on a CUDA device, a plain ``from_numpy`` on the CPU."""
+    """A host array on ``device``: through a pinned buffer of the staging
+    pool (shared with the library path, :mod:`.fused`) and an asynchronous
+    copy on a CUDA device, a plain ``from_numpy`` on the CPU. The buffer
+    goes back to the pool with the copy's event, so it is filled again only
+    after this copy has read it."""
     if device.type == "cuda":
-        pinned = torch.from_numpy(np.empty(0, dtype=host.dtype)).new_empty(
-            host.shape, pin_memory=True
+        pinned = take_staging(
+            host.shape, torch.from_numpy(np.empty(0, dtype=host.dtype)).dtype
         )
         pinned.numpy()[...] = host
-        return pinned.to(device, non_blocking=True)
+        staged = pinned.to(device, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(torch.cuda.current_stream(device))
+        release_staging(pinned, copied)
+        return staged
     if not host.flags.writeable:  # memmap views are read-only
         host = host.copy()
     return torch.from_numpy(np.ascontiguousarray(host))
@@ -137,7 +145,7 @@ def compute_profiles_batched(
     # Chunk plan over the PROCESSED frames: each chunk after the first
     # starts with the previous processed frame (its prior), so row j's
     # differencing prior is row j-1. Skipped frames never enter a batch.
-    chunks = []  # (pos, stop, needed, row0, row1, prior_index)
+    chunks = []  # (pos, stop, needed, row0, row1)
     pos = 0
     while pos < m:
         stop = min(m, pos + (chunk_size if pos == 0 else chunk_size - 1))
@@ -148,8 +156,7 @@ def compute_profiles_batched(
             needed = processed[pos:stop].copy()
             offset = 0
         n_rows = needed.size
-        prior_index = np.arange(-1, n_rows - 1, dtype=np.int32)
-        chunks.append((pos, stop, needed, offset, n_rows, prior_index))
+        chunks.append((pos, stop, needed, offset, n_rows))
         pos = stop
 
     def _runs(needed):
@@ -183,8 +190,9 @@ def compute_profiles_batched(
     pending = []  # (pos, stop, row0, row1, sob, grad, intens, rawc, counts)
     count_pool = ThreadPoolExecutor(max_workers=1) if use_band else None
     try:
-        for pos, stop, needed, row0, row1, prior_np in chunks:
-            prior = _stage(prior_np, dev)
+        for pos, stop, needed, row0, row1 in chunks:
+            # Row j's prior is row j-1 of the chunk; row 0 has none.
+            prior = torch.arange(-1, row1 - 1, dtype=torch.int32, device=dev)
             if use_band:
                 # Only the band rows ship; the host counts the above-noise
                 # pixels, fused with the band gather when the codec can.

@@ -320,3 +320,105 @@ def test_golden_table_on_the_card(tmp_path, backend):
     assert produced.read_bytes() == GOLDEN.read_bytes()
     assert cuda_band_profiles.launches > bands
     assert (cuda_tracking_scan.launches > scans) == (backend == "device")
+
+
+def _library_outputs(directory, device, sc=None):
+    import hsip_tpu_torch
+    from hsip_tpu_torch.track import batch
+
+    with hsip_tpu_torch.open_collection(str(directory)) as coll:
+        outs = batch.track_collection_device(coll, FlameDetectorConfig(),
+                                             source_config=sc, device=device)
+    return outs, list(batch.LAST_GROUP_PATHS)
+
+
+def _write_library(directory):
+    """Five ragged recordings, two of them with long dark preambles, so
+    that with one video a group the clip engages for some groups."""
+    from hsip_tpu_torch.io import (
+        CihxSpec, FlameSpec, synthesize_flame_video, write_recording,
+    )
+
+    for i, (n, ignition) in enumerate([(96, 2), (61, 40), (96, 3), (80, 60), (70, 2)]):
+        flame = FlameSpec(x0=25.0, v0_px=384 / 40, accel_px=0.0,
+                          ignition_frame=ignition, seed=200 + i)
+        frames, _ = synthesize_flame_video(n, height=64, width=384, flame=flame)
+        write_recording(directory, f"nova-run-{i + 1}-001", frames,
+                        spec=CihxSpec(width=384, height=64, total_frames=n,
+                                      record_rate=100_000, bit_depth=12))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", ["0.7", "off"])
+@pytest.mark.parametrize("groups", ["1", "4"])
+def test_fused_library_on_the_card_equals_the_cpu_run(tmp_path, monkeypatch,
+                                                      groups, clip):
+    """The fused group program on the card (copy stream, pinned pool, both
+    CUDA kernels at V > 1) gives the CPU run's outputs, G = 1 and 4, the
+    clip on and off, five times over on one pool: a pinned buffer that is
+    overwritten before its copy has read it shows up as a differing run."""
+    from hsip_tpu_torch.track import fused
+
+    dev = _cuda()
+    _write_library(tmp_path / "v")
+    monkeypatch.setenv("HSIP_FUSED_GROUPS", groups)
+    monkeypatch.setenv("HSIP_CLIP_EMPTY", clip)
+    want, paths = _library_outputs(tmp_path / "v", "cpu")
+    assert paths == ["fused"]
+    cpu_clipped = fused._LAST_CLIPPED
+    assert cpu_clipped == (clip != "off" and groups == "4")
+    band0, scan0 = cuda_band_profiles.launches, cuda_tracking_scan.launches
+    for rep in range(5):
+        got, paths = _library_outputs(tmp_path / "v", dev)
+        assert paths == ["fused"]
+        assert fused._LAST_CLIPPED == cpu_clipped
+        assert len(fused._LAST_PIPELINE_TRACE) == int(groups)
+        for g, w in zip(got, want):
+            assert g.merged_rows() == w.merged_rows(), rep
+            assert g.break_reason == w.break_reason
+            assert g.empty_frame_count == w.empty_frame_count
+    assert cuda_band_profiles.launches - band0 == 5 * int(groups)
+    assert cuda_tracking_scan.launches - scan0 == 5 * int(groups)
+    assert any(o.rows for o in want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,use_frame_diff", [("threshold", True),
+                                                   ("half_maximum", False),
+                                                   ("gradient", True)])
+def test_fused_and_chunked_library_on_the_card_named_methods(tmp_path, monkeypatch,
+                                                            method, use_frame_diff):
+    dev = _cuda()
+    _write_library(tmp_path / "v")
+    sc = VideoSourceConfig(name="t", detection_method=method,
+                           use_frame_diff=use_frame_diff,
+                           save_frame_images=False, save_stacked_sequences=False)
+    want, _ = _library_outputs(tmp_path / "v", "cpu", sc)
+    for fused_on, path in (("1", "fused"), ("0", "chunked")):
+        monkeypatch.setenv("HSIP_FUSED", fused_on)
+        got, paths = _library_outputs(tmp_path / "v", dev, sc)
+        assert paths == [path]
+        for g, w in zip(got, want):
+            assert g.merged_rows() == w.merged_rows(), path
+
+
+@pytest.mark.cuda
+def test_map_phase_staging_reuses_the_pinned_pool(tmp_path):
+    """Per-file runs back to back take their chunk buffers from the pool
+    the library path uses, and the tables do not change."""
+    from hsip_tpu_torch.pipeline import process_video_file
+    from hsip_tpu_torch.track import fused
+
+    _cuda()
+    _write_library(tmp_path / "v")
+    cfg = VideoSourceConfig(name="t", save_frame_images=False,
+                            save_stacked_sequences=False)
+    meta = tmp_path / "v" / "nova-run-1-001.cihx"
+    want = process_video_file(meta, cfg, backend="device", verbose=False,
+                              write_outputs=False, device="cpu").merged_rows()
+    for _ in range(4):
+        got = process_video_file(meta, cfg, backend="device", verbose=False,
+                                 write_outputs=False)
+        assert got.merged_rows() == want
+    pooled = [e for e in fused._STAGING_POOL if e[1].is_pinned()]
+    assert pooled and len(fused._STAGING_POOL) <= fused._STAGING_POOL_MAX

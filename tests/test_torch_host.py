@@ -449,3 +449,208 @@ def test_figures_byte_identical(flame_recording, tmp_path):
                 v, [2, 6, 10], 60.0, out / "stacked.png", title="S")
     _same_tree(tmp_path / "jax", tmp_path / "port")
     assert len(list((tmp_path / "port").iterdir())) == 2
+
+
+# --- collection, checkpoint, summary, logging: the cases of
+# tests/test_collection.py and tests/test_utils.py that apply, run on both
+# packages and held against each other ---
+
+import json  # noqa: E402
+import logging  # noqa: E402
+
+from hsip_tpu import utils as jax_utils  # noqa: E402
+from hsip_tpu_torch import utils as port_utils  # noqa: E402
+
+_BOTH = [pytest.param(hsip_tpu, jax_io, jax_utils, id="jax"),
+         pytest.param(hsip_tpu_torch, port_io, port_utils, id="port")]
+
+
+@pytest.fixture(scope="module")
+def collection_dir(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("collection")
+    all_frames = []
+    for i, n in enumerate([5, 8, 3]):
+        frames, _ = port_io.synthesize_flame_video(n, height=32, width=128,
+                                                   bit_depth=12)
+        frames = frames.copy()
+        frames[:, 0, 0] = i * 100 + np.arange(n)  # identity tag per video
+        spec = port_io.CihxSpec(width=128, height=32, total_frames=n,
+                                record_rate=10_000)
+        port_io.write_recording(tmp, f"run-{i + 1}-video", frames, spec=spec)
+        all_frames.append(frames)
+    (tmp / "notes.txt").write_text("not a video")
+    return tmp, all_frames
+
+
+def _collection_facts(pkg, tmp, all_frames):
+    """Everything tests/test_collection.py asks of a collection, as data."""
+    facts = {}
+    with pkg.VideoCollection.from_directory(tmp, pattern="*.cihx") as coll:
+        facts["len"] = (len(coll), coll.total_frames, [len(v) for v in coll],
+                        [p.name for p in coll.filepaths])
+        facts["g2l"] = [coll.global_to_local(i) for i in (0, 4, 5, 12, 13, -1)]
+        facts["l2g"] = [coll.local_to_global(1, 0), coll.local_to_global(2, 2)]
+        for bad in (lambda: coll.global_to_local(16),
+                    lambda: coll.local_to_global(5, 0)):
+            with pytest.raises(IndexError):
+                bad()
+        np.testing.assert_array_equal(coll.get_global_frame(5), all_frames[1][0])
+        np.testing.assert_array_equal(coll.get_global_frame(15), all_frames[2][2])
+        facts["time"] = coll.get_global_time(5)
+        facts["tags"] = coll.map_frames(lambda fr, vi, fi: (vi, fi, int(fr[0, 0])))
+        facts["sub"] = coll.map_frames(lambda fr, vi, fi: int(fr[0, 0]),
+                                       frame_indices=[5, 13])
+        facts["sub_v"] = coll.map_frames(lambda fr, vi, fi: vi, video_indices=[2])
+        facts["iter"] = [(vi, fi, t) for _f, vi, fi, t in coll.iter_frames()]
+        plan = coll.batch_plan()
+        facts["plan"] = (plan["max_frames"], plan["max_height"], plan["max_width"],
+                         plan["lengths"].tolist(), plan["pad_mask"].tolist())
+        facts["summary"] = coll.summary()
+        facts["repr"] = repr(coll)
+    return facts
+
+
+def test_collection_matches(collection_dir):
+    tmp, all_frames = collection_dir
+    port = _collection_facts(hsip_tpu_torch, tmp, all_frames)
+    assert port == _collection_facts(hsip_tpu, tmp, all_frames)
+    assert port["len"][:3] == (3, 16, [5, 8, 3])
+    assert port["g2l"] == [(0, 0), (0, 4), (1, 0), (1, 7), (2, 0), (2, 2)]
+    assert port["l2g"] == [5, 15] and port["sub"] == [100, 200]
+    assert port["plan"][:4] == (8, 32, 128, [5, 8, 3])
+
+
+@pytest.mark.parametrize("pkg,io,utils", _BOTH)
+def test_collection_constructors_and_setters(collection_dir, tmp_path, capsys,
+                                             pkg, io, utils):
+    tmp, _ = collection_dir
+    files = sorted(tmp.glob("*.cihx"))
+    coll = pkg.VideoCollection.from_files(files)
+    assert coll.set_calibration_all(0.002).set_trigger_frame_all(1) is coll
+    assert all(v.calibration.scale == 0.002 and v.trigger_frame == 1 for v in coll)
+    coll.close_all()
+    c1, c2 = pkg.open_collection(str(tmp)), pkg.open_collection([str(f) for f in files])
+    assert len(c1) == len(c2) == 3
+    c1.close_all()
+    c2.close_all()
+    with pytest.raises(ValueError):
+        pkg.open_collection(42)
+    with pytest.raises(FileNotFoundError):
+        pkg.VideoCollection.from_directory(tmp_path / "nope")
+    # A corrupt header warns and is skipped.
+    frames, _ = io.synthesize_flame_video(3, height=32, width=128)
+    io.write_recording(tmp_path, "good", frames)
+    (tmp_path / "bad.cihx").write_bytes(b"corrupt")
+    with pkg.VideoCollection.from_directory(tmp_path) as only_good:
+        assert len(only_good) == 1
+    assert "Warning" in capsys.readouterr().out
+    # recursive=True finds nested directories; the default does not.
+    io.write_recording(tmp_path / "shot-B", "run-9-video", frames)
+    with pkg.VideoCollection.from_directory(str(tmp_path)) as flat:
+        assert len(flat) == 1
+    with pkg.VideoCollection.from_directory(str(tmp_path), recursive=True) as deep:
+        assert len(deep) == 2
+
+
+@pytest.mark.parametrize("pkg,io,utils", _BOTH)
+def test_batch_checkpoint_roundtrip(tmp_path, pkg, io, utils):
+    ckpt_cls = utils.BatchCheckpoint
+    ckpt = ckpt_cls(tmp_path, run_config_hash="abc")
+    assert not ckpt.is_done("a.cihx")
+    ckpt.mark_done("a.cihx", rows=5)
+    again = ckpt_cls(tmp_path, run_config_hash="abc")
+    assert again.is_done("a.cihx") and again.completed["a.cihx"]["rows"] == 5
+    assert not ckpt_cls(tmp_path, run_config_hash="DIFFERENT").is_done("a.cihx")
+    (tmp_path / ckpt_cls.FILENAME).write_text("{broken")
+    assert not ckpt_cls(tmp_path, run_config_hash="abc").is_done("a.cihx")
+    # clear() removes every rank's ledger.
+    for r in range(3):
+        ckpt_cls(tmp_path, run_config_hash="h", rank=r).mark_done(f"v{r}")
+    fresh = ckpt_cls(tmp_path, run_config_hash="h", rank=0)
+    assert fresh.is_done("v1")  # sees other ranks' ledgers
+    fresh.clear()
+    assert not any(tmp_path.glob("hsip-checkpoint*.json"))
+    assert not ckpt_cls(tmp_path, run_config_hash="h").is_done("v1")
+
+
+def test_checkpoint_ledgers_interchangeable(tmp_path):
+    """A ledger one package wrote is read by the other: same file name,
+    same schema."""
+    assert port_utils.BatchCheckpoint.FILENAME == jax_utils.BatchCheckpoint.FILENAME
+    jax_utils.BatchCheckpoint(tmp_path, run_config_hash="x").mark_done("a", rows=2)
+    port = port_utils.BatchCheckpoint(tmp_path, run_config_hash="x")
+    assert port.is_done("a") and port.completed["a"]["rows"] == 2
+    port.mark_done("b", rows=3)
+    assert jax_utils.BatchCheckpoint(tmp_path, run_config_hash="x").is_done("b")
+
+
+def test_run_summary_matches(ddt_frames, tmp_path):
+    """The same outputs and failures give the same summary JSON in both
+    packages (apart from the clock)."""
+    frames, rate = ddt_frames, 100_000.0
+    docs = []
+    for tag, utils, scan, cfg_cls, det_cls in (
+            ("jax", jax_utils, jax_scan, JaxSourceConfig, jax_det.FlameDetectorConfig),
+            ("port", port_utils, port_scan, port_config.VideoSourceConfig,
+             port_config.FlameDetectorConfig)):
+        det = det_cls()
+        profiles = scan._compute_profiles_host_exact(
+            lambda a, b: frames[a:b], len(frames), frames.shape[1:],
+            float(frames[0].max()), det)
+        out = scan.run_tracking_scan(profiles, det, rate, 0.0008, 0.1)
+        out.total_frames = len(frames)
+        out.phase_timings = {"map_s": 0.1, "scan_s": 0.2}
+        summary = utils.RunSummary("S", config_echo={
+            "source": cfg_cls(name="S"), "detector": det, "backend": "x"})
+        assert not summary.dirty
+        summary.add_file("a.cihx", out, 0.0008, 0.1, 0.5, len(frames))
+        summary.add_failure("b.cihx", ValueError("bad header"))
+        assert summary.dirty
+        path = summary.write(tmp_path / tag)
+        assert path.name == "run-summary.json"
+        doc = json.loads(path.read_text())
+        # Seeding a new summary from the written one keeps the records;
+        # a retried file replaces its failure.
+        again = utils.RunSummary("S")
+        again.seed_from(tmp_path / tag)
+        again.add_file("b.cihx", out, 0.0008, 0.1, 0.5, len(frames))
+        doc2 = json.loads(again.write(tmp_path / tag).read_text())
+        assert [f["file"] for f in doc2["files"]] == ["a.cihx", "b.cihx"]
+        assert not doc2["failures"]
+        for d in (doc, doc2):
+            for key in [k for k in d if "time" in k or "wall" in k
+                        or k in ("started", "finished", "timestamp")]:
+                d.pop(key)
+        docs.append((doc, doc2))
+    assert docs[0] == docs[1]
+    assert docs[0][0]["files"][0]["rows"] > 5
+    assert docs[0][0]["failures"][0]["file"] == "b.cihx"
+
+
+def test_port_logger_namespacing_and_kv():
+    from hsip_tpu_torch.utils.logging import _KVFormatter, kv
+
+    log = port_utils.get_logger("test")
+    assert log.name == "hsip_tpu_torch.test"
+    assert port_utils.get_logger("hsip_tpu_torch.x").name == "hsip_tpu_torch.x"
+    port_utils.set_log_level("DEBUG")
+    records = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            records.append(record)
+
+    handler = Capture()
+    root = logging.getLogger("hsip_tpu_torch")
+    root.addHandler(handler)
+    try:
+        kv(log, logging.INFO, "hello", frames=10, fps=100)
+    finally:
+        root.removeHandler(handler)
+        port_utils.set_log_level("INFO")
+    assert any("hello" in r.getMessage() for r in records)
+    line = _KVFormatter().format(records[-1])
+    assert "frames=10" in line and "fps=100" in line
+    # The JAX package's logger tree is untouched by the port's.
+    assert not logging.getLogger("hsip_tpu").handlers or (
+        logging.getLogger("hsip_tpu") is not root)

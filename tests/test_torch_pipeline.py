@@ -166,7 +166,10 @@ class _Block:
 
 sys.meta_path.insert(0, _Block())
 import hsip_tpu_torch
-from hsip_tpu_torch.pipeline import process_video_file
+import os
+from hsip_tpu_torch.pipeline import (process_video_file, process_video_source,
+                                     process_video_source_library)
+from hsip_tpu_torch.track import batch
 from hsip_tpu_torch.track.config import FileCalibration, VideoSourceConfig
 
 cfg = VideoSourceConfig(name="G", save_frame_images=False,
@@ -179,6 +182,18 @@ for backend in ("gpu", "device", "exact"):
     out = process_video_file(sys.argv[1], cfg, backend=backend, verbose=False,
                              device="cpu")
     assert len(out.rows) > 5, backend
+# Library mode (the fused group program, then the chunked path) and the
+# per-file source runner over the recording's directory.
+cfg.video_path = os.path.dirname(sys.argv[1])
+for tag, fused in (("library", "1"), ("chunked", "0")):
+    os.environ["HSIP_FUSED"] = fused
+    cfg.output_dir = sys.argv[2] + "/" + tag
+    outs = process_video_source_library(cfg, verbose=False, device="cpu")
+    assert len(outs) == 1 and len(outs[0].rows) > 5, tag
+    assert batch.LAST_GROUP_PATHS == ["fused" if fused == "1" else "chunked"]
+cfg.output_dir = sys.argv[2] + "/source"
+assert len(process_video_source(cfg, backend="device", verbose=False,
+                                device="cpu")) == 1
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "hsip_tpu"))
 assert loaded == [], loaded
@@ -188,7 +203,8 @@ print("ok")
 
 def test_port_runs_without_jax(tmp_path):
     """With jax and hsip_tpu unimportable, the port's CPU run of every
-    backend writes the golden table byte for byte."""
+    backend, of library mode (fused and chunked) and of the per-file source
+    runner writes the golden table byte for byte."""
     meta, _ = _golden_recording(tmp_path)
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, str(meta), str(tmp_path / "out")],
@@ -196,7 +212,7 @@ def test_port_runs_without_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
-    for backend in ("gpu", "device", "exact"):
+    for backend in ("gpu", "device", "exact", "library", "chunked", "source"):
         produced = tmp_path / "out" / backend / GOLDEN.name
         assert produced.read_bytes() == GOLDEN.read_bytes(), backend
 
@@ -224,6 +240,11 @@ def test_port_sources_never_import_jax():
     of the file (AST scan, so lazy imports inside functions count too)."""
     offenders = [str(f) for f in _port_files() if "jax" in _imported_roots(f)]
     assert not offenders
+    scanned = {str(f.relative_to(REPO)) for f in _port_files()}
+    assert {"hsip_tpu_torch/collection.py", "hsip_tpu_torch/track/fused.py",
+            "hsip_tpu_torch/track/batch.py", "hsip_tpu_torch/pipeline.py",
+            "hsip_tpu_torch/utils/logging.py", "hsip_tpu_torch/utils/checkpoint.py",
+            "hsip_tpu_torch/utils/summary.py", "chip_smoke.py"} <= scanned
 
 
 def test_port_sources_never_import_the_jax_package():
