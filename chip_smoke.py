@@ -607,6 +607,20 @@ def library_phase(tmp, meta, golden_meta, card, config):
             "gather_start_t", "gather_end_t", "dispatch_t", "inputs_ready_t",
             "finals_ready_t"))
         log(f"[{card}] library group {g} (ms from the first gather): {stamps}")
+    # Fused against chunked over the same 8, in turns, 5 warm runs each.
+    pair = {"fused": [], "chunked": []}
+    for i in range(5):
+        for route, env in (("fused", {}), ("chunked", dict(HSIP_FUSED="0"))):
+            run = run_library(lib8, tmp / f"t-{route}-{i}", **env)
+            if run[3] != [route] or run[2] != loop[2]:
+                raise AssertionError(f"{route} run {i}: paths {run[3]} or other tables")
+            pair[route].append(run[1])
+    fused_s, chunked_s = (statistics.median(pair[r]) for r in ("fused", "chunked"))
+    log(f"[{card}] library over the 8, fused against chunked (HSIP_FUSED=0) in "
+        f"turns, median of 5 warm runs each: fused {fused_s:.4f} s "
+        f"({', '.join(f'{x:.4f}' for x in pair['fused'])}); chunked {chunked_s:.4f} s "
+        f"({', '.join(f'{x:.4f}' for x in pair['chunked'])}); "
+        f"chunked / fused {chunked_s / fused_s:.3f}")
     # The host-side stages of one more library run, without the runner
     # around it (no table files, no ledger).
     stages = StageTimes()
@@ -618,7 +632,8 @@ def library_phase(tmp, meta, golden_meta, card, config):
         track_s = time.perf_counter() - t0
     log(f"[{card}] library track_collection_device alone {track_s:.4f} s; "
         f"StageTimes (host seconds) {stages.as_dict()}")
-    return counts, dict(loop_s=loop_s, lib_s=lib_s, peak=peak, estimate=estimate)
+    return counts, dict(loop_s=loop_s, lib_s=lib_s, peak=peak, estimate=estimate,
+                        fused_s=fused_s, chunked_s=chunked_s)
 
 
 def main() -> int:
@@ -807,27 +822,60 @@ def main() -> int:
         log(f"[{card}] scan kernel, combined, V={vs} M={n} W={WIDTH}: {scans_ms:.4f} ms "
             f"({scans_ms * 1e3 / n:.3f} us a step); bound {scans_bound_ms:.4f} ms; "
             f"whole-row copies {scans_rate / 1e12:.3f} TB/s")
-        # The library's shapes: the flat band of 2 and of 8 videos, each
-        # video's first row without a prior; the scan at V=2 (V=8 is above).
+        # The library's shapes, held against the plain versions and timed:
+        # the flat band of 2, 3 and 8 videos (phase 7's groups are of 2 and
+        # 3; 8 is one group of the whole library), each video's first row
+        # without a prior; the scan at V=2 and, ragged, at V=2 and V=3 (V=8
+        # is above). The band kernel's plan changes with N.
         lib_ms = {}
-        for v in (2, 8):
+        for v in (2, 3, 8):
             nb = v * n
             band_v = band_t.repeat(v, 1, 1)
             flat = torch.arange(nb, dtype=torch.int32, device=dev)
             prior_v = torch.where(flat % n > 0, flat - 1, -1).to(torch.int32)
+            got = cuda_band_profiles(band_v, prior_v, 5.0, k, sigma)
+            want = band_profiles_plain(band_v, prior_v, 5.0, k, sigma)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("sobel", "gradient", "intensity"), got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"band kernel != plain at the library's N={v}x{n}: {name}, "
+                        f"max abs {float((a - b).abs().max()):.3e}")
+            del got, want
             ms = cuda_ms(lambda: cuda_band_profiles(band_v, prior_v, 5.0, k, sigma), 10)
             b_ms, b_by = band_bound(nb, band.shape[1], WIDTH, k, len(gaussian_taps(sigma)))
             lib_ms[f"band_ms_n{v}x{n}"] = ms
             lib_ms[f"band_bound_ms_n{v}x{n}"] = b_ms
             log(f"[{card}] band kernel, N={v}x{n} B={band.shape[1]} W={WIDTH} (a library "
-                f"group's flat batch): {ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
-                f"{b_ms / ms:.2%} of it")
+                f"group's flat batch): bit-equal to plain, plan "
+                f"{band_plan(nb, WIDTH, k, sigma)}; {ms:.4f} ms; bound {b_ms:.4f} ms "
+                f"({b_by}), {b_ms / ms:.2%} of it")
             del band_v, prior_v
         f2 = tuple(t[:2].contiguous() for t in f4)
         kw2 = dict(width=WIDTH, intensity_lines=f2[5], **{
             key: (val[:2] if isinstance(val, np.ndarray) and val.ndim else val)
             for key, val in four_video_params(params_for("combined")).items()})
         scan2_res = cuda_tracking_scan(*f2[:5], **kw2)
+        p4 = four_video_params(params_for("combined"))
+        for label, videos, lengths in (
+                ("V=2", f2, (n, n)),
+                ("V=2 ragged", f2, (512, n)),
+                ("V=3 ragged", tuple(t[:3].contiguous() for t in f4), (n, 512, n))):
+            fi_v, s_v, g_v, em_v, hp_v, it_v = ragged(videos, lengths)
+            kw_v = dict(width=WIDTH, intensity_lines=it_v, **{
+                key: (val[:len(lengths)] if isinstance(val, np.ndarray) and val.ndim
+                      else val) for key, val in p4.items()})
+            got = cuda_tracking_scan(fi_v, s_v, g_v, em_v, hp_v, **kw_v)
+            want = tracking_scan_plain(fi_v, s_v, g_v, em_v, hp_v, **kw_v)
+            torch.cuda.synchronize()
+            for name, a, b in zip(got._fields, got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"scan kernel != plain at the library's {label}: {name}")
+            log(f"scan kernel vs plain at the library's shapes: {label} M={n} "
+                f"lengths {lengths}: 9/9 fields equal, "
+                f"{int((got.final_position >= 0).sum())} detections")
+            del got, want
         scan2_bound_ms, _ = scan_bound(scan2_res, WIDTH, "combined")
         scan2_ms = cuda_ms(lambda: cuda_tracking_scan(*f2[:5], **kw2), 5)
         log(f"[{card}] scan kernel, combined, V=2 M={n} W={WIDTH}: {scan2_ms:.4f} ms "
@@ -861,7 +909,8 @@ def main() -> int:
 
     log(json.dumps({"library": {
         "frames": 8 * N_FRAMES, "loop_s": lib_times["loop_s"], "library_s": lib_times["lib_s"],
-        "peak_device_bytes": lib_times["peak"], "budget_estimate_bytes": lib_times["estimate"]}}))
+        "peak_device_bytes": lib_times["peak"], "budget_estimate_bytes": lib_times["estimate"],
+        "fused_s": lib_times["fused_s"], "chunked_s": lib_times["chunked_s"]}}))
     log(card)
     # No single PyTorch call computes either kernel's function: library_ms
     # is null for both.

@@ -538,6 +538,28 @@ def _pre_attempt_fingerprint(failure_cache, path: Path):
         return None
 
 
+def _is_device_failure(exc: BaseException, dev) -> bool:
+    """True for an error of the device or a kernel, not of one recording:
+    the batch runners raise it instead of warning and moving on. A
+    :class:`KernelError` always; on a CUDA device also what torch raises
+    for a fault that surfaces later than its launch (an illegal access
+    reported at the next synchronisation, out of memory). Such an error is
+    sticky: every later recording would fail the same way."""
+    import torch
+
+    if isinstance(exc, KernelError):
+        return True
+    if dev.type != "cuda":
+        return False
+    device_errors = (torch.cuda.OutOfMemoryError,
+                     getattr(torch, "AcceleratorError", torch.cuda.OutOfMemoryError))
+    if isinstance(exc, device_errors):
+        return True
+    text = str(exc)
+    return isinstance(exc, RuntimeError) and (
+        text.startswith(("CUDA", "cuda")) or "CUDA error" in text)
+
+
 def _record_failure_fingerprint(failure_cache, path: Path, fingerprint) -> None:
     if failure_cache is None or fingerprint is None:
         return
@@ -624,7 +646,8 @@ def process_video_source(
 
     A recording that cannot be read or processed is warned about and left
     for ``resume``; a kernel that does not build or launch
-    (:class:`~hsip_tpu_torch.kernels._build.KernelError`) is raised.
+    (:class:`~hsip_tpu_torch.kernels._build.KernelError`) is raised, and so
+    is a CUDA error that torch reports later (:func:`_is_device_failure`).
     """
     import time as _time
 
@@ -660,9 +683,9 @@ def process_video_source(
                     verbose=verbose and is_root,
                     device=dev,
                 )
-            except KernelError:
-                raise
             except Exception as exc:
+                if _is_device_failure(exc, dev):
+                    raise
                 # Batch semantics match VideoCollection.from_directory: one
                 # unreadable or corrupt recording must not abort the batch
                 # run. Warn, record in the summary, leave it unmarked
@@ -835,9 +858,9 @@ def process_video_source_library(
                             )
                             if verbose and is_root:
                                 print(f"  Figures: {video.filepath.name}")
-                        except KernelError:
-                            raise
                         except Exception as exc:
+                            if _is_device_failure(exc, dev):
+                                raise
                             print(f"Warning: Could not render figures for "
                                   f"{video.filepath.name}: {exc}")
                             _log.warning("failed figures for %s: %s",

@@ -197,7 +197,6 @@ def track_collection_device(
     use_absolute_time: bool = True,
     chunk_size: Optional[int] = None,
     mesh=None,
-    video_axis: str = "video",
     max_group_bytes: int = MAX_GROUP_BYTES,
     stage_times=None,
     device=None,
@@ -247,7 +246,7 @@ def track_collection_device(
         for sub in _split_by_footprint(idxs, videos, w, max_group_bytes):
             group_outputs = _track_uniform_videos(
                 [videos[i] for i in sub], w, config, source_config,
-                use_absolute_time, chunk_size, mesh, video_axis,
+                use_absolute_time, chunk_size,
                 stage_times=stage_times, device=dev,
             )
             for i, out in zip(sub, group_outputs):
@@ -291,8 +290,6 @@ def _track_uniform_videos(
     source_config: Optional[VideoSourceConfig],
     use_absolute_time: bool,
     chunk_size: Optional[int],
-    mesh,
-    video_axis: str,
     stage_times=None,
     device=None,
 ) -> List[TrackingOutput]:
@@ -316,7 +313,7 @@ def _track_uniform_videos(
     # chunked path when preconditions fail — track/fused.py.)
     fused = track_uniform_videos_fused(
         videos, w, config, source_config, use_absolute_time,
-        stage_times=stage_times, mesh=mesh, video_axis=video_axis, device=dev,
+        stage_times=stage_times, device=dev,
     )
     if fused is not None:
         LAST_GROUP_PATHS.append("fused")

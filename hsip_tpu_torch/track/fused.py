@@ -50,20 +50,19 @@ from .tracker import FlameTracker
 
 __all__ = ["track_uniform_videos_fused", "take_staging", "release_staging"]
 
-# Device-memory budget of the fused path, chosen for the NVIDIA H100
-# (80 GB): half the card. On a CUDA device the limit is the smaller of this
-# and half of what ``torch.cuda.mem_get_info`` reports as the card's total.
-_MAX_FUSED_BYTES = 40 * 10**9
-
-
 def _fused_limit_bytes(dev: torch.device) -> int:
-    """The most :func:`_fused_budget_bytes` may come to on ``dev``."""
-    if dev.type != "cuda":
-        return _MAX_FUSED_BYTES
-    return min(_MAX_FUSED_BYTES, torch.cuda.mem_get_info(dev)[1] // 2)
+    """The most :func:`_fused_budget_bytes` may come to on ``dev``: half of
+    the device's memory. On the NVIDIA H100 (80 GB) the port targets that is
+    half of what ``torch.cuda.mem_get_info`` reports as the card's total,
+    about 40 GB; the other half is left to the allocator's cache, the
+    chunked path's tensors and whatever else the process holds. A CPU
+    device's memory is the host's."""
+    if dev.type == "cuda":
+        return torch.cuda.mem_get_info(dev)[1] // 2
+    return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") // 2
 
 
-def _fused_group_count(n_videos: int, mesh=None) -> int:
+def _fused_group_count(n_videos: int) -> int:
     """Pipelined group count G for the fused library.
 
     G > 1 overlaps group g+1's host gather with group g's device program:
@@ -74,7 +73,7 @@ def _fused_group_count(n_videos: int, mesh=None) -> int:
     by default, one for a single video; ``HSIP_FUSED_GROUPS`` overrides (an
     integer; ``auto`` = this rule).
     """
-    if mesh is not None or n_videos < 2:
+    if n_videos < 2:
         return 1
     env = os.environ.get("HSIP_FUSED_GROUPS", "auto")
     if env != "auto":
@@ -221,8 +220,11 @@ def _fused_budget_bytes(n_videos: int, n_max: int, w: int, band_rows: int,
     """Device bytes a fused call of ``n_videos`` in ``n_groups`` holds at
     its peak.
 
-    Every group's packed payload may be on the device at once (the host
-    enqueues ahead of the programs). The other tensors are those of one
+    An upper bound: every group's packed payload is counted, since the
+    host enqueues ahead of the programs and a payload is freed only when
+    the compute stream has passed its program. Where the device keeps up
+    with the host's gathers, fewer payloads live together and the peak is
+    lower. The other tensors are those of one
     group's program, which run one after another on the compute stream:
     the float32 band, and beside it the larger of two sets that do not
     live together — the eager unpack's transient for ONE video (the bytes
@@ -320,8 +322,6 @@ def track_uniform_videos_fused(
     source_config: Optional[VideoSourceConfig],
     use_absolute_time: bool,
     stage_times=None,
-    mesh=None,
-    video_axis: str = "video",
     device=None,
 ) -> Optional[List["TrackingOutput"]]:  # noqa: F821 — runtime import below
     """Fused library tracking for a uniform-shape video group on ``device``
@@ -365,8 +365,6 @@ def track_uniform_videos_fused(
     from . import batch as _batch
     from .scan import MIN_SIGNAL_FRACTION, NOISE_THRESHOLD_FLOOR
 
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded library mode is not ported yet")
     dev = resolve_device(device)
     if os.environ.get("HSIP_FUSED", "1") == "0":
         return None
@@ -399,7 +397,7 @@ def track_uniform_videos_fused(
     V = len(videos)
     n_max = max(len(v) for v in videos)
     B = 2 * margin + 1
-    n_groups = _fused_group_count(V, mesh)
+    n_groups = _fused_group_count(V)
     if (_fused_budget_bytes(V, n_max, w, B, depth0, n_groups)
             > _fused_limit_bytes(dev)):
         return None

@@ -11,6 +11,7 @@ velocities), ``break_reason``, ``empty_frame_count`` and the bytes of every
 table are equal.
 """
 
+import os
 import time
 
 import numpy as np
@@ -261,22 +262,22 @@ def test_clip_ranges_equals_original(data, v, n_max, thr):
 def test_fused_group_count_routing(monkeypatch):
     count = port_fused._fused_group_count
     monkeypatch.setenv("HSIP_FUSED_GROUPS", "4")
-    assert count(8, None) == 4
-    assert count(3, None) == 3  # clamped to V
-    assert count(1, None) == 1
+    assert count(8) == 4
+    assert count(3) == 3  # clamped to V
+    assert count(1) == 1
     monkeypatch.setenv("HSIP_FUSED_GROUPS", "junk")
-    assert count(8, None) == 1
+    assert count(8) == 1
     monkeypatch.setenv("HSIP_FUSED_GROUPS", "auto")
-    assert count(8, None) == 4
-    assert count(3, None) == 3
-    assert count(1, None) == 1
+    assert count(8) == 4
+    assert count(3) == 3
+    assert count(1) == 1
     monkeypatch.delenv("HSIP_FUSED_GROUPS")
-    assert count(8, None) == 4
+    assert count(8) == 4
     # The forced counts agree with the original's (its auto rule asks the
     # link, which has no counterpart here).
     monkeypatch.setenv("HSIP_FUSED_GROUPS", "3")
     for v in (1, 2, 3, 8):
-        assert count(v, None) == jax_fused._fused_group_count(v, None)
+        assert count(v) == jax_fused._fused_group_count(v, None)
 
 
 def _dark_library(d):
@@ -382,7 +383,7 @@ def test_fused_declines_and_chunked_path_writes_the_same(tmp_path, monkeypatch, 
     elif why == "env_off":
         monkeypatch.setenv("HSIP_FUSED", "0")
     elif why == "budget_zero":
-        monkeypatch.setattr(port_fused, "_MAX_FUSED_BYTES", 0)
+        monkeypatch.setattr(port_fused, "_fused_limit_bytes", lambda dev: 0)
     assert _fused_direct(d, det, sc) is None
     got = _port_library(d, det, source_config=sc)
     assert port_batch.LAST_GROUP_PATHS == ["chunked"]
@@ -425,12 +426,6 @@ def test_mesh_is_not_ported(tmp_path):
     _write(d, "nova-run-1-001")
     with pytest.raises(NotImplementedError):
         _port_library(d, mesh=object())
-    with hsip_tpu_torch.open_collection(str(d)) as coll:
-        videos = list(coll)
-        with pytest.raises(NotImplementedError):
-            port_fused.track_uniform_videos_fused(
-                videos, 384, FlameDetectorConfig(), None, True, mesh=object(),
-                device="cpu")
     sc = _source(VideoSourceConfig)
     sc.video_path = str(d)
     with pytest.raises(NotImplementedError):
@@ -501,7 +496,9 @@ def test_budget_counts_payload_band_lines_and_one_unpack():
     assert whole > payload + 8 * n * b * w * 4 + 6 * 8 * n * w * 4
     # 8-bit decodes with one cast: a smaller transient than 12-bit.
     assert budget(1, n, w, b, 8) < budget(1, n, w, b, 12)
-    assert port_fused._fused_limit_bytes(torch.device("cpu")) == port_fused._MAX_FUSED_BYTES
+    # One rule: half of the device's memory (the host's, for a CPU device).
+    host = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    assert port_fused._fused_limit_bytes(torch.device("cpu")) == host // 2
 
 
 def test_staging_pool_hands_a_buffer_to_one_user_and_stays_bounded(monkeypatch):

@@ -401,6 +401,51 @@ def test_kernel_errors_are_raised_not_skipped(library_dir, tmp_path, monkeypatch
     assert issubclass(KernelError, RuntimeError)
 
 
+@pytest.mark.parametrize("runner", ["per_file", "figures"])
+@pytest.mark.parametrize("error", ["late_cuda_error", "out_of_memory", "recording"])
+def test_late_cuda_errors_are_raised_not_skipped(library_dir, tmp_path, monkeypatch,
+                                                 runner, error):
+    """A kernel's fault can surface after its launch, as torch's own
+    RuntimeError at the next synchronisation. On a CUDA device the runners
+    raise it (every later recording would fail the same way); a
+    recording's own error is still warned about and skipped."""
+    exc = {"late_cuda_error": RuntimeError(
+               "CUDA error: an illegal memory access was encountered"),
+           "out_of_memory": torch.cuda.OutOfMemoryError("CUDA out of memory."),
+           "recording": ValueError("truncated payload")}[error]
+
+    def broken(*args, **kwargs):
+        raise exc
+
+    cuda = torch.device("cuda")
+    monkeypatch.setattr(port_pipeline, "resolve_device", lambda device: cuda)
+    monkeypatch.setattr(port_pipeline, "process_video_file", broken)
+    cfg = _source(library_dir, tmp_path / "out",
+                  save_frame_images=runner == "figures", figure_style="compact")
+
+    def run():
+        if runner == "per_file":
+            return port_pipeline.process_video_source(cfg, backend="device",
+                                                      verbose=False)
+        # The batched scan itself on the CPU; the figure replay sees `cuda`.
+        real = port_batch.track_collection_device
+        monkeypatch.setattr(
+            port_batch, "track_collection_device",
+            lambda *a, **kw: real(*a, **{**kw, "device": "cpu"}))
+        return port_pipeline.process_video_source_library(cfg, verbose=False)
+
+    if error == "recording":
+        outs = run()
+        assert len(outs) == (0 if runner == "per_file" else 3)
+    else:
+        with pytest.raises(type(exc)):
+            run()
+    # On a CPU device the same text is a recording's error like any other.
+    assert not port_pipeline._is_device_failure(
+        RuntimeError("CUDA error: x"), torch.device("cpu"))
+    assert port_pipeline._is_device_failure(KernelError("x"), torch.device("cpu"))
+
+
 def test_unknown_backend_is_refused(library_dir, tmp_path):
     with pytest.raises(ValueError, match="Unknown backend"):
         port_pipeline.process_video_source(
