@@ -49,7 +49,21 @@ Phases, each fatal when it fails:
    times: the per-file source runner against library mode over the eight
    (median of 3 warm runs each, in turns), the library's ``StageTimes`` and
    per-group timeline, peak device memory against the fused budget's
-   estimate, and both kernels at the library's shapes.
+   estimate, and both kernels at the library's shapes;
+8. the command line: ``hsip_tpu_torch.cli.main`` over the eight recordings
+   of phase 7 (``--no-images --no-sequences``, the card by default): per
+   file (the auto backend must be ``device``: both kernels once a file),
+   with ``--library`` (fused, the scan with V > 1), and under two ranks
+   that share the card (two processes that run ``main`` with
+   ``--distributed --coordinator 127.0.0.1:PORT --num-processes 2
+   --process-id {0,1}``, per file and with ``--library``, each with a time
+   limit; each rank must take a disjoint half and launch both kernels). On
+   every route the tables must equal, byte for byte, phase 7's per-file
+   ``device`` run. ``--library --mesh`` and ``--device cuda:99`` must
+   return 2 and write nothing; ``--profile-dir`` on one recording must
+   leave a non-empty trace. Then times: each CLI route beside the direct
+   runner on the same bytes, in turns (median of 3 warm runs a side), and
+   the two-rank runs' walls.
 
 It prints, before the last line, a JSON object with one entry per kernel,
 and as the last line ``{"ok": true, "device": {...}}``. It exits non-zero,
@@ -632,8 +646,264 @@ def library_phase(tmp, meta, golden_meta, card, config):
         track_s = time.perf_counter() - t0
     log(f"[{card}] library track_collection_device alone {track_s:.4f} s; "
         f"StageTimes (host seconds) {stages.as_dict()}")
+    want8 = {name: data for name, data in want.items() if name.startswith("lib-run-")}
     return counts, dict(loop_s=loop_s, lib_s=lib_s, peak=peak, estimate=estimate,
-                        fused_s=fused_s, chunked_s=chunked_s)
+                        fused_s=fused_s, chunked_s=chunked_s), lib8, want8
+
+
+def cli_config(tmp, video_dir, tag):
+    """A JSON run config for ``--config``: phase 7's source (two
+    calibrations by file name) writing into its own output directory."""
+    out_dir = tmp / f"cli-{tag}"
+    path = tmp / f"cli-{tag}.json"
+    path.write_text(json.dumps({"source": [{
+        "name": "smoke", "video_path": str(video_dir), "output_dir": str(out_dir),
+        "file_calibration": [{"calibration": 0.000833333, "position_offset": 1.0159,
+                              "files": ["run-1-"]}],
+    }]}))
+    return path, out_dir
+
+
+def run_cli(argv):
+    """``hsip_tpu_torch.cli.main(argv)`` on the card; (exit code, wall
+    seconds, stdout, stderr)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from hsip_tpu_torch.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    return rc, time.perf_counter() - t0, out.getvalue(), err.getvalue()
+
+
+# One rank of a two-rank run: ``main`` once per config file (the first run
+# counted, the later ones warm), then one line with what this rank saw.
+_RANK_PROGRAM = r"""
+import json, sys, time
+import torch
+from hsip_tpu_torch.cli import main
+from hsip_tpu_torch.kernels.cuda_preprocess import cuda_band_profiles
+from hsip_tpu_torch.track import batch
+from hsip_tpu_torch.track.cuda_scan import cuda_tracking_scan
+
+n_configs = int(sys.argv[1])
+configs, flags = sys.argv[2:2 + n_configs], sys.argv[2 + n_configs:]
+report = {"rcs": [], "walls": []}
+for i, config in enumerate(configs):
+    t0 = time.perf_counter()
+    report["rcs"].append(main(["--config", config, *flags]))
+    torch.cuda.synchronize()
+    report["walls"].append(time.perf_counter() - t0)
+    if i == 0:
+        report.update(band=cuda_band_profiles.launches, scan=cuda_tracking_scan.launches,
+                      videos=cuda_tracking_scan.videos, paths=list(batch.LAST_GROUP_PATHS),
+                      device=torch.cuda.current_device())
+print("RANK_REPORT " + json.dumps(report), flush=True)
+sys.exit(max(report["rcs"]))
+"""
+
+
+def run_two_ranks(configs, flags, timeout_s=300):
+    """Two processes that share the card, each running the command line
+    with ``--distributed`` over a gloo group on 127.0.0.1; returns each
+    rank's report and stdout, and the wall from launch to exit."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    env["PYTHONPATH"] = os.pathsep.join(
+        x for x in (str(REPO), env.get("PYTHONPATH")) if x)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK_PROGRAM, str(len(configs)), *map(str, configs),
+         *flags, "--distributed", "--coordinator", f"127.0.0.1:{port}",
+         "--num-processes", "2", "--process-id", str(rank)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(REPO)) for rank in range(2)]
+    results = []
+    try:
+        for rank, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=timeout_s)
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"rank {rank} exited {proc.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+            line = [x for x in out.splitlines() if x.startswith("RANK_REPORT ")][-1]
+            results.append((json.loads(line[len("RANK_REPORT "):]), out))
+    finally:
+        for proc in procs:  # no rank outlives the phase
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate(timeout=30)
+    return results, time.perf_counter() - t0
+
+
+def rank_files(out_dir):
+    """The recordings each rank's run summary lists (rank 0, rank 1)."""
+    return [sorted(f["file"] for f in json.loads((out_dir / name).read_text())["files"])
+            for name in ("run-summary.json", "run-summary.rank1.json")]
+
+
+def cli_phase(tmp, meta, lib8, want8, card):
+    """Phase 8. Returns the launch counts of the per-file and the library
+    run through the command line, and the walls it measured."""
+    from hsip_tpu_torch.kernels.cuda_preprocess import cuda_band_profiles
+    from hsip_tpu_torch.track import batch
+    from hsip_tpu_torch.track.cuda_scan import cuda_tracking_scan
+
+    quiet = ["--no-images", "--no-sequences", "--quiet"]
+    names = sorted(x.name for x in lib8.glob("*.cihx"))
+
+    def counted(tag, *flags):
+        config, out_dir = cli_config(tmp, lib8, tag)
+        cuda_band_profiles.launches = 0
+        cuda_tracking_scan.launches = 0
+        cuda_tracking_scan.videos = 0
+        rc, wall, out, err = run_cli(["--config", str(config), *quiet, *flags])
+        counts = (cuda_band_profiles.launches, cuda_tracking_scan.launches,
+                  cuda_tracking_scan.videos)
+        if rc != 0 or "Processing complete!" not in out:
+            raise AssertionError(f"hsip-torch {flags} returned {rc}: {err[-2000:]}")
+        if tables_of(out_dir) != want8:
+            raise AssertionError(f"hsip-torch {flags}: tables differ from the "
+                                 f"per-file device run's")
+        return counts, wall
+
+    # ---- per file: the auto backend without figures is 'device', so both
+    # kernels run once a file (the 'gpu' backend launches no scan kernel).
+    file_counts, file_first_s = counted("file")
+    log(f"hsip-torch per file over {len(names)} recordings: launches band "
+        f"{file_counts[0]}, scan {file_counts[1]} over {file_counts[2]} videos; "
+        f"first run {file_first_s:.4f} s")
+    if file_counts != (len(names),) * 3:
+        raise AssertionError(f"per-file CLI launches {file_counts}: expected both "
+                             f"kernels once a file ({len(names)})")
+
+    # ---- --library: fused, the scan with V > 1
+    lib_counts, lib_first_s = counted("library", "--library")
+    paths = list(batch.LAST_GROUP_PATHS)
+    log(f"hsip-torch --library: group paths {paths}, launches band {lib_counts[0]}, "
+        f"scan {lib_counts[1]} over {lib_counts[2]} videos; first run {lib_first_s:.4f} s")
+    if not paths or paths != ["fused"] * len(paths):
+        raise AssertionError(f"hsip-torch --library did not fuse: {paths}")
+    if lib_counts[0] < 1 or lib_counts[1] < 1 or lib_counts[2] != len(names) \
+            or lib_counts[2] <= lib_counts[1]:
+        raise AssertionError(f"library CLI launches {lib_counts}: expected both kernels "
+                             f"and a scan launch with V > 1 over {len(names)} videos")
+
+    # ---- refusals: exit 2, one line, nothing written
+    import os
+
+    refused = tmp / "cli-refused"
+    refused.mkdir()
+    cwd = os.getcwd()
+    os.chdir(refused)  # a run would write ./hsip-output here
+    try:
+        for argv, text in ((["--video-path", str(lib8), "--library", "--mesh"],
+                            "not ported yet"),
+                           (["--video-path", str(lib8), *quiet, "--device", "cuda:99"],
+                            "--device cuda:99")):
+            rc, _, out, err = run_cli(argv)
+            if rc != 2 or text not in err or list(refused.iterdir()):
+                raise AssertionError(f"hsip-torch {argv[2:]} returned {rc}, wrote "
+                                     f"{list(refused.iterdir())}: {err[-500:]}")
+    finally:
+        os.chdir(cwd)
+    log("hsip-torch --library --mesh and --device cuda:99: exit 2, nothing written")
+
+    # ---- --profile-dir on one recording
+    trace_dir = tmp / "cli-trace"
+    rc, wall, _, err = run_cli(["--video-path", str(Path(meta).parent), "--output-dir",
+                                str(tmp / "cli-profiled"), *quiet,
+                                "--profile-dir", str(trace_dir)])
+    traces = sorted(trace_dir.glob("*.json"))
+    if rc != 0 or len(traces) != 1 or traces[0].stat().st_size == 0:
+        raise AssertionError(f"--profile-dir: exit {rc}, traces {traces}: {err[-500:]}")
+    text = traces[0].read_text()
+    log(f"hsip-torch --profile-dir on one {N_FRAMES}-frame recording: {traces[0].name}, "
+        f"{traces[0].stat().st_size} bytes, {wall:.4f} s; names the band kernel: "
+        f"{'band_profiles_kernel' in text}, the scan kernel: "
+        f"{'tracking_scan_kernel' in text}")
+    del text
+
+    # ---- two ranks that share the card, per file and with --library; the
+    # first run of each rank is checked, three more are timed.
+    two = {}
+    for tag, flags in (("ranks-file", []), ("ranks-library", ["--library"])):
+        runs = [cli_config(tmp, lib8, f"{tag}-{i}") for i in range(4)]
+        results, outer_s = run_two_ranks([c for c, _ in runs], [*quiet, *flags])
+        mine, theirs = rank_files(runs[0][1])
+        if set(mine) & set(theirs) or sorted(mine + theirs) != names \
+                or len(mine) != len(theirs):
+            raise AssertionError(f"{tag}: ranks took {mine} and {theirs}")
+        for rank, (report, out) in enumerate(results):
+            share = len(mine if rank == 0 else theirs)
+            ok = (report["band"] >= 1 and report["scan"] >= 1
+                  and report["videos"] == share and set(report["rcs"]) == {0})
+            if not flags:
+                ok = ok and report["band"] == report["scan"] == share
+            else:
+                ok = ok and report["paths"] == ["fused"] * len(report["paths"]) \
+                    and report["paths"]
+            if not ok or ("Processing complete!" in out) != (rank == 0):
+                raise AssertionError(f"{tag}: rank {rank} reported {report}")
+        for _, out_dir in runs:
+            if tables_of(out_dir) != want8:
+                raise AssertionError(f"{tag}: tables differ from the per-file device run's")
+        # Both ranks leave main through one barrier: a run's wall is the
+        # slower rank's.
+        walls = [max(a, b) for a, b in zip(results[0][0]["walls"], results[1][0]["walls"])]
+        two[tag] = dict(first_s=walls[0], warm=walls[1:], outer_s=outer_s,
+                        launches=[(r["band"], r["scan"], r["videos"]) for r, _ in results])
+        log(f"hsip-torch two ranks on cuda:{results[0][0]['device']}/"
+            f"cuda:{results[1][0]['device']}, {'--library' if flags else 'per file'}: "
+            f"rank 0 took {len(mine)}, rank 1 {len(theirs)} recordings; launches "
+            f"(band, scan, videos) {two[tag]['launches']}; tables byte-identical")
+
+    # ---- times: each route beside the direct runner on the same bytes, in
+    # turns; the first round is the warm-up.
+    frames = len(names) * N_FRAMES
+    walls = {"loop": [], "cli-file": [], "library": [], "cli-library": []}
+    for i in range(4):
+        round_ = {"loop": run_loop(lib8, tmp / f"t8-loop-{i}")[1]}
+        config, _ = cli_config(tmp, lib8, f"t-file-{i}")
+        round_["cli-file"] = run_cli(["--config", str(config), *quiet])[1]
+        round_["library"] = run_library(lib8, tmp / f"t8-lib-{i}")[1]
+        config, _ = cli_config(tmp, lib8, f"t-library-{i}")
+        round_["cli-library"] = run_cli(["--config", str(config), *quiet, "--library"])[1]
+        if i:
+            for key, wall in round_.items():
+                walls[key].append(wall)
+    med = {key: statistics.median(runs) for key, runs in walls.items()}
+    for cli, direct, what in (("cli-file", "loop", "per file"),
+                              ("cli-library", "library", "--library")):
+        log(f"[{card}] hsip-torch {what} over 8 x {N_FRAMES} frames: {med[cli]:.4f} s, "
+            f"{frames / med[cli]:.1f} frames/s (median of 3 warm runs: "
+            f"{', '.join(f'{x:.4f}' for x in walls[cli])}); the direct runner in turns "
+            f"{med[direct]:.4f} s ({', '.join(f'{x:.4f}' for x in walls[direct])}); "
+            f"CLI / runner {med[cli] / med[direct]:.3f}")
+    for tag, what, one in (("ranks-file", "per file", "cli-file"),
+                           ("ranks-library", "--library", "cli-library")):
+        t = two[tag]
+        m = statistics.median(t["warm"])
+        log(f"[{card}] hsip-torch two ranks on one card, {what}: {m:.4f} s, "
+            f"{frames / m:.1f} frames/s (median of 3 warm runs in the ranks' processes: "
+            f"{', '.join(f'{x:.4f}' for x in t['warm'])}; first run {t['first_s']:.4f} s; "
+            f"launch to exit of all four runs {t['outer_s']:.2f} s); one process "
+            f"{med[one]:.4f} s; one / two {med[one] / m:.3f}")
+    return file_counts, lib_counts, dict(
+        med, ranks_file_s=statistics.median(two["ranks-file"]["warm"]),
+        ranks_library_s=statistics.median(two["ranks-library"]["warm"]),
+        ranks_file_launches=two["ranks-file"]["launches"],
+        ranks_library_launches=two["ranks-library"]["launches"])
 
 
 def main() -> int:
@@ -905,12 +1175,24 @@ def main() -> int:
         del scan_res, scan2_res, scan8_res, real
 
         # ---- phase 7: library mode ----
-        lib_launches, lib_times = library_phase(tmp, meta, golden_meta, card, config)
+        lib_launches, lib_times, lib8, want8 = library_phase(
+            tmp, meta, golden_meta, card, config)
+
+        # ---- phase 8: the command line ----
+        cli_file, cli_lib, cli_times = cli_phase(tmp, meta, lib8, want8, card)
 
     log(json.dumps({"library": {
         "frames": 8 * N_FRAMES, "loop_s": lib_times["loop_s"], "library_s": lib_times["lib_s"],
         "peak_device_bytes": lib_times["peak"], "budget_estimate_bytes": lib_times["estimate"],
         "fused_s": lib_times["fused_s"], "chunked_s": lib_times["chunked_s"]}}))
+    log(json.dumps({"cli": {
+        "frames": 8 * N_FRAMES, "per_file_s": cli_times["cli-file"],
+        "per_file_runner_s": cli_times["loop"], "library_s": cli_times["cli-library"],
+        "library_runner_s": cli_times["library"],
+        "two_ranks_per_file_s": cli_times["ranks_file_s"],
+        "two_ranks_library_s": cli_times["ranks_library_s"],
+        "two_ranks_per_file_launches": cli_times["ranks_file_launches"],
+        "two_ranks_library_launches": cli_times["ranks_library_launches"]}}))
     log(card)
     # No single PyTorch call computes either kernel's function: library_ms
     # is null for both.
@@ -919,6 +1201,7 @@ def main() -> int:
          "source": "hsip_tpu_torch/csrc/band_profiles.cu",
          "replaces": "hsip_tpu/kernels/pallas_preprocess.py:131",
          "launches": launches[0], "launches_library": lib_launches[0],
+         "launches_cli": cli_file[0], "launches_cli_library": cli_lib[0],
          "max_abs_err": band_err,
          "ms": band_ms, "plain_ms": band_plain_ms,
          "bound_ms": band_bound_ms, "bound_by": band_bound_by,
@@ -927,7 +1210,9 @@ def main() -> int:
          "source": "hsip_tpu_torch/csrc/tracking_scan.cu",
          "replaces": "hsip_tpu/track/pallas_scan.py:571",
          "launches": launches[1], "launches_library": lib_launches[1],
-         "videos_library": lib_launches[2], "max_abs_err": scan_err,
+         "videos_library": lib_launches[2],
+         "launches_cli": cli_file[1], "launches_cli_library": cli_lib[1],
+         "videos_cli_library": cli_lib[2], "max_abs_err": scan_err,
          "ms": scan_ms, "plain_ms": scan_plain_ms,
          "bound_ms": scan_bound_ms, "bound_by": scan_bound_by,
          "share_of_bound": scan_bound_ms / scan_ms, "library_ms": None,

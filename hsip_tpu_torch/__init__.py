@@ -23,9 +23,16 @@ Layout (mirrors ``hsip_tpu``; each file keeps its counterpart's name):
 * ``track/cuda_scan``         — the tracking-scan CUDA kernel
 * ``track/batch``             — library mode: shape groups, the chunked group path
 * ``track/fused``             — library mode: one device program per group, pipelined
-* ``pipeline``                — per-file and per-source runners, the table writer
-* ``utils``                   — device choice, logging, stage times, checkpoint, summary
+* ``pipeline``                — per-file and per-source runners, the table writers
+* ``parallel/processor``      — ``VideoProcessor``: whole recordings spread over
+  processes (``torch.distributed``, gloo), ``initialize_distributed``
+* ``cli``                     — the ``hsip-torch`` command (``python -m hsip_tpu_torch.cli``)
+* ``utils``                   — device choice, logging, checkpoint, summary
+* ``utils/profiling``         — ``StageTimes``; ``profile_trace`` (``torch.profiler``)
 * ``viz``                     — diagnostic figures (matplotlib, imported on demand)
+
+``import hsip_tpu_torch`` (and ``hsip_tpu_torch.track``) imports no torch:
+metadata-only workflows stay light, and the torch-heavy names load lazily.
 """
 
 from pathlib import Path
@@ -38,16 +45,33 @@ from .video import PhotonVideo, PhotonVideoFloat64, SpatialCalibration, TimingIn
 __version__ = "0.1.0"
 
 __all__ = [
+    "FlameDetector",
+    "FlameDetectorConfig",
     "MetadataConfig",
     "PhotonVideo",
     "PhotonVideoFloat64",
     "SpatialCalibration",
     "TimingInfo",
     "VideoCollection",
+    "VideoProcessor",
     "open_collection",
     "open_video",
     "__version__",
 ]
+
+
+# Loaded on demand: the processor imports torch, and the tracker is not
+# needed by metadata-only workflows.
+def __getattr__(name):
+    if name == "VideoProcessor":
+        from .parallel import VideoProcessor
+
+        return VideoProcessor
+    if name in ("FlameDetector", "FlameDetectorConfig"):
+        from . import track
+
+        return getattr(track, name)
+    raise AttributeError(f"module 'hsip_tpu_torch' has no attribute {name!r}")
 
 
 def open_video(

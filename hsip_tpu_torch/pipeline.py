@@ -5,7 +5,7 @@ per-file source runner :func:`process_video_source` and library mode
 :func:`process_video_source_library` (every recording of a source through
 one batched scan per shape group, :mod:`.track.batch`), the two runners
 sharing the checkpoint and run-summary ledger (:class:`_SourceLedger`). The
-table writer (:func:`write_position_results`,
+table writers (:func:`write_results`, :func:`write_position_results`,
 :func:`_write_ddt_split_tables`), the exact float64 backend
 (:func:`_track_video_exact`), the ledger and the failure cache are copies
 of the JAX package's, so the tables are byte-identical; the map phase and
@@ -31,8 +31,8 @@ from .utils.logging import get_logger
 from .video import SpatialCalibration
 
 __all__ = ["process_video_file", "process_video_source",
-           "process_video_source_library", "write_position_results",
-           "BACKENDS", "RESULT_COLUMNS"]
+           "process_video_source_library", "write_results",
+           "write_position_results", "BACKENDS", "RESULT_COLUMNS"]
 
 _log = get_logger("pipeline")
 
@@ -66,6 +66,21 @@ _HEADER_LINES = [
     "#",
 ]
 
+
+def write_results(output_dict: dict, path) -> Path:
+    """Generic space-delimited table writer: column-name → value-list dict.
+
+    Utility counterpart of :func:`write_position_results` for ad-hoc tables
+    (reference analogue: ``process_videos.py:766-780``).
+    """
+    path = Path(path)
+    fieldnames = list(output_dict.keys())
+    n_rows = len(next(iter(output_dict.values()))) if output_dict else 0
+    with open(path, "w") as f:
+        f.write(" ".join(str(k) for k in fieldnames) + "\n")
+        for i in range(n_rows):
+            f.write(" ".join(str(output_dict[k][i]) for k in fieldnames) + "\n")
+    return path
 
 
 def write_position_results(data: List[Tuple], filepath, label: str = "") -> Path:

@@ -3,7 +3,7 @@
 from .backend import resolve_device
 from .checkpoint import BatchCheckpoint
 from .logging import get_logger, set_log_level
-from .profiling import StageTimes
+from .profiling import StageTimes, profile_trace
 from .summary import RunSummary
 
 __all__ = [
@@ -11,6 +11,7 @@ __all__ = [
     "RunSummary",
     "StageTimes",
     "get_logger",
+    "profile_trace",
     "resolve_device",
     "set_log_level",
 ]

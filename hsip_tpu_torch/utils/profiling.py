@@ -1,15 +1,16 @@
-"""Profiling: wall-clock stage attribution (copy of ``StageTimes`` from
-:mod:`hsip_tpu.utils.profiling`; its profiler trace and server are not
-copied)."""
+"""Profiling: wall-clock stage attribution (``StageTimes``, a copy of the
+JAX package's) and :func:`profile_trace`, a ``torch.profiler`` trace of a
+scope. The JAX package's on-demand profiler server has no counterpart."""
 
 from __future__ import annotations
 
 import contextlib
 import threading
 import time
-from typing import Dict, Iterator
+from pathlib import Path
+from typing import Dict, Iterator, Optional
 
-__all__ = ["StageTimes"]
+__all__ = ["StageTimes", "profile_trace"]
 
 
 class StageTimes:
@@ -53,3 +54,38 @@ class StageTimes:
         with self._lock:
             return {k: round(v, ndigits) for k, v in sorted(self._t.items())}
 
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str], device=None) -> Iterator[None]:
+    """Capture a ``torch.profiler`` trace of the scope into ``log_dir``.
+
+    No-op when ``log_dir`` is None, so call sites can thread a CLI flag
+    straight through. Otherwise the scope runs under
+    ``torch.profiler.profile`` over the CPU activity, and the CUDA activity
+    when ``device`` (a ``torch.device``, or its name) is a CUDA device, and
+    on leaving the scope one Chrome trace, ``hsip-trace-<pid>.json``, is
+    written into ``log_dir`` (created if missing); open it in
+    ``chrome://tracing`` or Perfetto. The file name carries the process id
+    so the ranks of a multi-process run can share a directory. A trace
+    holds every operator and kernel launch of the scope: keep profiled runs
+    short.
+    """
+    if log_dir is None:
+        yield
+        return
+    import os
+
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(str(out / f"hsip-trace-{os.getpid()}.json"))

@@ -5,11 +5,12 @@ PIMS-style lazy video with trigger-relative and absolute (PFV4-matching)
 timing, spatial calibration, metadata filtering, chaining setters, context
 management and a float64 view. Differences by design:
 
-* Decoding is in-tree (:class:`hsip_tpu.io.MRAWReader`), no pyMRAW dependency.
+* Decoding is in-tree (:class:`hsip_tpu_torch.io.MRAWReader`), no pyMRAW
+  dependency.
 * :meth:`PhotonVideo.frame_bytes` exposes the *packed* payload for staging to
-  TPU HBM, where :mod:`hsip_tpu.kernels.unpack` decodes on-device.
+  device memory, where :mod:`hsip_tpu_torch.kernels.unpack` decodes on-device.
 * :meth:`PhotonVideo.read_batch` returns contiguous decoded frame batches for
-  the batched TPU preprocess path.
+  the batched device preprocess path.
 """
 
 from __future__ import annotations
@@ -503,11 +504,11 @@ class PhotonVideo:
         )
 
     def frame_bytes(self, start: int, stop: Optional[int] = None) -> np.ndarray:
-        """Packed payload bytes of frames [start, stop): the TPU staging path.
+        """Packed payload bytes of frames [start, stop): the device staging path.
 
-        Hand this straight to ``jax.device_put`` and decode on-device with
-        :func:`hsip_tpu.kernels.unpack.unpack_12bit_tpu` so raw bytes, not
-        decoded uint16, cross PCIe.
+        Copy this to the device (``torch.from_numpy(...).to(device)``) and
+        decode there with :func:`hsip_tpu_torch.kernels.unpack.unpack_12bit`
+        so raw bytes, not decoded uint16, cross PCIe.
         """
         return self._require_reader().frame_bytes(start, stop)
 

@@ -194,6 +194,26 @@ for tag, fused in (("library", "1"), ("chunked", "0")):
 cfg.output_dir = sys.argv[2] + "/source"
 assert len(process_video_source(cfg, backend="device", verbose=False,
                                 device="cpu")) == 1
+# The command line, per file and in library mode, over the same directory.
+from hsip_tpu_torch.cli import main
+
+for tag, flags in (("cli", []), ("cli-library", ["--library"])):
+    rc = main(["--video-path", cfg.video_path, "--output-dir",
+               sys.argv[2] + "/" + tag, "--calibration", "0.000833333",
+               "--position-offset", "1.0159", "--no-images", "--no-sequences",
+               "--quiet", "--device", "cpu", *flags])
+    assert rc == 0, (tag, rc)
+# Both examples, as scripts.
+import runpy
+
+out_root = sys.argv[2]
+for script, argv in (("demo_torch.py", ["--no-images", "--no-sequences", "--quiet"]),
+                     ("library_torch.py", [])):
+    sys.argv[:] = [script, out_root + "/" + script[:-3], "--device", "cpu", *argv]
+    try:
+        runpy.run_path(os.path.join("examples", script), run_name="__main__")
+    except SystemExit as exit_:
+        assert exit_.code == 0, (script, exit_.code)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "hsip_tpu"))
 assert loaded == [], loaded
@@ -203,8 +223,9 @@ print("ok")
 
 def test_port_runs_without_jax(tmp_path):
     """With jax and hsip_tpu unimportable, the port's CPU run of every
-    backend, of library mode (fused and chunked) and of the per-file source
-    runner writes the golden table byte for byte."""
+    backend, of library mode (fused and chunked), of the per-file source
+    runner and of the command line (per file and ``--library``) writes the
+    golden table byte for byte, and both examples run to their end."""
     meta, _ = _golden_recording(tmp_path)
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, str(meta), str(tmp_path / "out")],
@@ -212,13 +233,38 @@ def test_port_runs_without_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
-    for backend in ("gpu", "device", "exact", "library", "chunked", "source"):
+    for backend in ("gpu", "device", "exact", "library", "chunked", "source",
+                    "cli", "cli-library"):
         produced = tmp_path / "out" / backend / GOLDEN.name
         assert produced.read_bytes() == GOLDEN.read_bytes(), backend
+    demo = tmp_path / "out" / "demo_torch" / "Processed"
+    assert len(list(demo.glob("*/*-flame-position.txt"))) == 4
+    assert len(list((tmp_path / "out" / "library_torch" / "videos")
+                    .glob("*.cihx"))) == 3
+
+
+@pytest.mark.parametrize("script,flags,expect", [
+    ("demo_torch.py", ["--no-images", "--no-sequences"],
+     ["Processing: Nova", "Processing: Mini", "Processing complete!"]),
+    ("library_torch.py", [],
+     ["lib-run-3-001.cihx: ", "first recording velocity history"]),
+], ids=["demo", "library"])
+def test_examples_run_on_the_cpu(tmp_path, script, flags, expect):
+    """The port's two examples run to their end on the CPU, as scripts."""
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "examples" / script), str(tmp_path / "work"),
+         "--device", "cpu", *flags],
+        capture_output=True, text=True, timeout=300, cwd=str(tmp_path),
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for text in expect:
+        assert text in proc.stdout, text
 
 
 def _port_files():
-    return sorted((REPO / "hsip_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted((REPO / "hsip_tpu_torch").rglob("*.py"))
+            + sorted((REPO / "examples").glob("*_torch.py"))
+            + [REPO / "chip_smoke.py"])
 
 
 def _imported_roots(path):
@@ -244,7 +290,10 @@ def test_port_sources_never_import_jax():
     assert {"hsip_tpu_torch/collection.py", "hsip_tpu_torch/track/fused.py",
             "hsip_tpu_torch/track/batch.py", "hsip_tpu_torch/pipeline.py",
             "hsip_tpu_torch/utils/logging.py", "hsip_tpu_torch/utils/checkpoint.py",
-            "hsip_tpu_torch/utils/summary.py", "chip_smoke.py"} <= scanned
+            "hsip_tpu_torch/utils/summary.py", "chip_smoke.py",
+            "hsip_tpu_torch/cli.py", "hsip_tpu_torch/parallel/__init__.py",
+            "hsip_tpu_torch/parallel/processor.py",
+            "examples/demo_torch.py", "examples/library_torch.py"} <= scanned
 
 
 def test_port_sources_never_import_the_jax_package():
