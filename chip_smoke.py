@@ -59,11 +59,28 @@ Phases, each fatal when it fails:
    --process-id {0,1}``, per file and with ``--library``, each with a time
    limit; each rank must take a disjoint half and launch both kernels). On
    every route the tables must equal, byte for byte, phase 7's per-file
-   ``device`` run. ``--library --mesh`` and ``--device cuda:99`` must
-   return 2 and write nothing; ``--profile-dir`` on one recording must
-   leave a non-empty trace. Then times: each CLI route beside the direct
-   runner on the same bytes, in turns (median of 3 warm runs a side), and
-   the two-rank runs' walls.
+   ``device`` run. ``--device cuda:99`` must return 2 and write nothing;
+   ``--profile-dir`` on one recording must leave a non-empty trace. Then
+   times: each CLI route beside the direct runner on the same bytes, in
+   turns (median of 3 warm runs a side), and the two-rank runs' walls;
+9. the mesh (``hsip_tpu_torch.parallel``), every multi-slot mesh with its
+   slots on ``cuda:0``: ``track_video`` over a 2- and a 4-slot frame mesh,
+   ``scan='device'`` and ``'host'``, at a chunk size of half the recording
+   (two chunks): the band kernel launched slots × chunks times, the
+   sharded profiles bit-equal to the unsharded map phase's, the sharded
+   band chain on the card bit-equal to its plain version on CPU slots, the
+   tables byte-equal to phase 5's; ``process_video_source_library`` over
+   phase 7's eight recordings with a one-card mesh and a 2-slot mesh, fused
+   and with ``HSIP_FUSED=0``: both kernels launched on every slot, tables
+   byte-equal to phase 7's per-file ``device`` run; ``hsip-torch --library
+   --mesh`` writes the same tables, and ``--library --mesh N`` with N past
+   the cards returns 2 and writes nothing; ``run_multichip_dryrun`` and
+   ``run_pipeline_dryrun`` with 4 slots on the card (the dry run's total and
+   positions as with 4 CPU slots; a position may differ only at a near-tie,
+   printed with its profiles within the tolerance). Then times, medians of
+   3 warm runs in turns: library without a mesh, with the one-card mesh and
+   with the 2-slot mesh; ``track_video`` unsharded and over a 2-slot frame
+   mesh.
 
 It prints, before the last line, a JSON object with one entry per kernel,
 and as the last line ``{"ok": true, "device": {...}}``. It exits non-zero,
@@ -457,10 +474,10 @@ def env_set(**values):
     return old
 
 
-def run_library(video_dir, out_dir, resume=False, **env):
-    """One process_video_source_library run on the card under the given
-    environment switches; (outputs, wall seconds, tables, group paths,
-    clipped, pipeline trace)."""
+def run_library(video_dir, out_dir, resume=False, mesh=None, **env):
+    """One process_video_source_library run on the card (over ``mesh``
+    when given) under the given environment switches; (outputs, wall
+    seconds, tables, group paths, clipped, pipeline trace)."""
     import contextlib
     import io
 
@@ -474,7 +491,8 @@ def run_library(video_dir, out_dir, resume=False, **env):
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):  # calibration warnings
             outs = process_video_source_library(
-                library_source(video_dir, out_dir), verbose=False, resume=resume)
+                library_source(video_dir, out_dir), verbose=False, resume=resume,
+                mesh=mesh)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -682,6 +700,24 @@ def run_cli(argv):
     return rc, time.perf_counter() - t0, out.getvalue(), err.getvalue()
 
 
+def assert_refused(directory, argv, text):
+    """``hsip-torch argv``, run from the new empty ``directory`` (where a
+    run would write ./hsip-output), must return 2 with ``text`` on stderr
+    and write nothing."""
+    import os
+
+    directory.mkdir()
+    cwd = os.getcwd()
+    os.chdir(directory)
+    try:
+        rc, _, _, err = run_cli(argv)
+    finally:
+        os.chdir(cwd)
+    if rc != 2 or text not in err or list(directory.iterdir()):
+        raise AssertionError(f"hsip-torch {argv[2:]} returned {rc}, wrote "
+                             f"{list(directory.iterdir())}: {err[-500:]}")
+
+
 # One rank of a two-rank run: ``main`` once per config file (the first run
 # counted, the later ones warm), then one line with what this rank saw.
 _RANK_PROGRAM = r"""
@@ -799,25 +835,11 @@ def cli_phase(tmp, meta, lib8, want8, card):
         raise AssertionError(f"library CLI launches {lib_counts}: expected both kernels "
                              f"and a scan launch with V > 1 over {len(names)} videos")
 
-    # ---- refusals: exit 2, one line, nothing written
-    import os
-
-    refused = tmp / "cli-refused"
-    refused.mkdir()
-    cwd = os.getcwd()
-    os.chdir(refused)  # a run would write ./hsip-output here
-    try:
-        for argv, text in ((["--video-path", str(lib8), "--library", "--mesh"],
-                            "not ported yet"),
-                           (["--video-path", str(lib8), *quiet, "--device", "cuda:99"],
-                            "--device cuda:99")):
-            rc, _, out, err = run_cli(argv)
-            if rc != 2 or text not in err or list(refused.iterdir()):
-                raise AssertionError(f"hsip-torch {argv[2:]} returned {rc}, wrote "
-                                     f"{list(refused.iterdir())}: {err[-500:]}")
-    finally:
-        os.chdir(cwd)
-    log("hsip-torch --library --mesh and --device cuda:99: exit 2, nothing written")
+    # ---- a refusal: exit 2, nothing written
+    assert_refused(tmp / "cli-refused",
+                   ["--video-path", str(lib8), *quiet, "--device", "cuda:99"],
+                   "--device cuda:99")
+    log("hsip-torch --device cuda:99: exit 2, nothing written")
 
     # ---- --profile-dir on one recording
     trace_dir = tmp / "cli-trace"
@@ -904,6 +926,256 @@ def cli_phase(tmp, meta, lib8, want8, card):
         ranks_library_s=statistics.median(two["ranks-library"]["warm"]),
         ranks_file_launches=two["ranks-file"]["launches"],
         ranks_library_launches=two["ranks-library"]["launches"])
+
+
+def counters_zero():
+    from hsip_tpu_torch.kernels.cuda_preprocess import cuda_band_profiles
+    from hsip_tpu_torch.track.cuda_scan import cuda_tracking_scan
+
+    cuda_band_profiles.launches = 0
+    cuda_tracking_scan.launches = 0
+    cuda_tracking_scan.videos = 0
+
+
+def counters():
+    """(band launches, scan launches, scan videos) since counters_zero()."""
+    from hsip_tpu_torch.kernels.cuda_preprocess import cuda_band_profiles
+    from hsip_tpu_torch.track.cuda_scan import cuda_tracking_scan
+
+    return (cuda_band_profiles.launches, cuda_tracking_scan.launches,
+            cuda_tracking_scan.videos)
+
+
+def track_tables(video, config, meta, out_dir, **kw):
+    """``track_video`` as ``process_video_file`` calls it for phase 5's
+    source (its calibration by file name), then its tables written by the
+    pipeline's writer; (tables, wall seconds)."""
+    import torch
+
+    from hsip_tpu_torch.pipeline import _write_ddt_split_tables
+    from hsip_tpu_torch.track.scan import track_video
+
+    cal, off = source_config(out_dir).get_calibration_for_file(Path(meta).name)
+    t0 = time.perf_counter()
+    out = track_video(video, config, cal, off, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out_dir.mkdir(parents=True)
+    _write_ddt_split_tables(out, out_dir, Path(meta).stem, False)
+    return tables_of(out_dir), wall
+
+
+def check_sharded_chain(dev, rng, config):
+    """The sharded band chain (halo copies, one band kernel launch a slot)
+    with two slots on the card against the same bands on two CPU slots
+    (the plain chain), at the map phase's shapes: 2 × 512 frames, B=19,
+    W=1024. Returns the largest abs difference; fails unless bit-equal."""
+    import torch
+
+    from hsip_tpu_torch.parallel.sharding import shard_band_profiles
+
+    k, sigma = config.morphology_kernel_size, config.gaussian_sigma
+    band, _ = band_case(rng, 2 * 512, k, sigma, WIDTH)
+    halo = torch.zeros((1,) + band.shape[1:])
+    outs = {}
+    for where in (dev, torch.device("cpu")):
+        bands = [torch.cat([halo, torch.from_numpy(part)]).to(where)
+                 for part in (band[:512], band[512:])]
+        outs[where.type] = shard_band_profiles(
+            bands, 5.0, morphology_kernel_size=k, gaussian_sigma=sigma)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        for a, b in zip(got, want):
+            worst = max(worst, float((a.cpu() - b).abs().max()))
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError("sharded band chain on the card != plain on CPU slots")
+    return worst
+
+
+def mesh_phase(tmp, meta, lib8, want8, dev_tables, card, config, rng):
+    """Phase 9. Returns the launch counts of the mesh routes and what it
+    measured."""
+    import numpy as np
+    import torch
+
+    from hsip_tpu_torch import open_video
+    from hsip_tpu_torch.parallel import make_mesh, video_frame_mesh
+    from hsip_tpu_torch.parallel.dryrun import (
+        build_multichip_step,
+        run_multichip_dryrun,
+        run_pipeline_dryrun,
+    )
+    from hsip_tpu_torch.track.scan import _compute_profiles_sharded, compute_profiles_batched
+    from hsip_tpu_torch.utils import StageTimes
+
+    gpu = torch.device(GPU, 0)
+    chunk = N_FRAMES // 2
+    lines = ("sobel_lines", "gradient_lines", "intensity_lines", "raw_center_lines")
+
+    # ---- (a) track_video over a frame mesh
+    chain_err = check_sharded_chain(gpu, rng, config)
+    log(f"sharded band chain, 2 slots x 512 frames on the card: bit-equal to the plain "
+        f"chain on 2 CPU slots (max abs {chain_err:.3e})")
+    tv_launches = {}
+    with open_video(str(meta)) as video:
+        bg = float(np.max(video[0]))
+        _packed, read_band, count_fn, depth = video.staging_paths()
+        single = compute_profiles_batched(
+            video.read_batch, len(video), video.frame_shape, bg, config,
+            chunk_size=4096, read_band=read_band, count_fn=count_fn,
+            read_band_counts=video.band_bytes_and_counts, band_bit_depth=depth,
+            keep_device=True, device=gpu)
+        for slots in (2, 4):
+            mesh = make_mesh("frame", devices=[gpu] * slots)
+            sharded = _compute_profiles_sharded(video, bg, config, (), mesh,
+                                                frames_per_shard=chunk // slots,
+                                                keep_device=True)
+            torch.cuda.synchronize()
+            for name in lines:
+                if not torch.equal(getattr(sharded, name), getattr(single, name)):
+                    raise AssertionError(f"{slots}-slot sharded {name} != unsharded")
+            if not np.array_equal(sharded.signal_counts, single.signal_counts):
+                raise AssertionError(f"{slots}-slot sharded counts != unsharded")
+            for scan in ("device", "host"):
+                counters_zero()
+                tables, _ = track_tables(video, config, meta, tmp / f"mesh-tv-{slots}-{scan}",
+                                         mesh=mesh, scan=scan, chunk_size=chunk)
+                got = counters()
+                tv_launches[(slots, scan)] = got
+                want = (slots * 2, int(scan == "device"), int(scan == "device"))
+                if got != want:
+                    raise AssertionError(f"track_video over {slots} slots, scan={scan}: "
+                                         f"launches {got}, expected {want}")
+                if tables != dev_tables:
+                    raise AssertionError(f"track_video over {slots} slots, scan={scan}: "
+                                         f"tables differ from phase 5's")
+            log(f"track_video over a {slots}-slot frame mesh on {gpu}, chunks of {chunk}: "
+                f"profiles and counts bit-equal to the unsharded map phase; launches "
+                f"(band, scan, videos) device {tv_launches[(slots, 'device')]}, host "
+                f"{tv_launches[(slots, 'host')]}; tables byte-equal to phase 5's")
+        del single, sharded
+
+    # ---- (b) library mode over a video mesh
+    meshes = {1: make_mesh("video", devices=[gpu]), 2: make_mesh("video", devices=[gpu] * 2)}
+    lib_launches = {}
+    for slots, env in ((1, {}), (2, {}), (1, dict(HSIP_FUSED="0")), (2, dict(HSIP_FUSED="0"))):
+        tag = f"{slots}-slot" + (", HSIP_FUSED=0" if env else "")
+        counters_zero()
+        outs, wall, tables, paths, _, trace = run_library(
+            lib8, tmp / f"mesh-lib-{slots}-{len(env)}", mesh=meshes[slots], **env)
+        got = counters()
+        lib_launches[tag] = got
+        if tables != want8:
+            raise AssertionError(f"library over the {tag} mesh: tables differ")
+        if env:  # the chunked path: a band launch a video, a scan a slot
+            per_slot = "scan launches one each"
+            ok = paths == ["chunked"] and got == (8, slots, 8)
+        else:
+            per_slot = {s: tuple(map(sum, zip(*(t["launches"] for t in trace
+                                                  if t["slot"] == s))))
+                        for s in range(slots)}
+            ok = (paths == ["fused"] and got[2] == 8
+                  and all(b >= 1 and c >= 1 for b, c in per_slot.values()))
+        if not ok:
+            raise AssertionError(f"library over the {tag} mesh: paths {paths}, "
+                                 f"launches {got}, a slot {per_slot}")
+        log(f"library over the {tag} mesh: paths {paths}, launches (band, scan, "
+            f"videos) {got}, a slot {per_slot}, {wall:.4f} s; tables byte-equal to "
+            f"the per-file device run")
+
+    # ---- (c) the command line
+    config_path, out_dir = cli_config(tmp, lib8, "mesh")
+    counters_zero()
+    rc, wall, out, err = run_cli(["--config", str(config_path), "--no-images",
+                                  "--no-sequences", "--library", "--mesh"])
+    cli_launches = counters()
+    n_cards = torch.cuda.device_count()
+    if rc != 0 or f"Sharding video axis over {n_cards} devices" not in out \
+            or tables_of(out_dir) != want8 or min(cli_launches) < 1:
+        raise AssertionError(f"hsip-torch --library --mesh returned {rc}, launches "
+                             f"{cli_launches}: {err[-2000:]}")
+    assert_refused(tmp / "mesh-refused",
+                   ["--video-path", str(lib8), "--library", "--mesh", str(n_cards + 1)],
+                   f"--mesh {n_cards + 1}: only {n_cards} local device(s)")
+    log(f"hsip-torch --library --mesh: {n_cards} card(s), launches {cli_launches}, "
+        f"{wall:.4f} s, tables byte-equal; --library --mesh {n_cards + 1}: exit 2, "
+        f"nothing written")
+
+    # ---- (d) the dry runs, 4 slots on the card against 4 CPU slots
+    got = run_multichip_dryrun(4, devices=[gpu] * 4)
+    want = run_multichip_dryrun(4, devices=["cpu"] * 4)
+    if got[2] != want[2]:
+        raise AssertionError(f"dry run total {got[2]} != {want[2]} on CPU slots")
+    differ = np.argwhere((got[0] != want[0]) | (got[1] != want[1]))
+    if differ.size:
+        # The dry run's frames; a differing position must come with rows
+        # that agree within the tolerance: a near-tie.
+        frames = np.random.default_rng(0).integers(0, 4096, size=(2, 4, 24, 128),
+                                                   dtype=np.uint16)
+        rows = {}
+        for where in (gpu, torch.device("cpu")):
+            step = build_multichip_step(video_frame_mesh(2, [where] * 4), 24, 128)
+            rows[where.type] = step(frames, 100.0, 5.0, 50.0)[3:]
+        for v, n in differ:
+            for i, name in enumerate(("sobel", "gradient")):
+                a = rows["cuda"][i][v][n].cpu().numpy()
+                b = rows["cpu"][i][v][n].numpy()
+                log(f"dry run near-tie at video {v} frame {n}: positions "
+                    f"{got[0][v, n], got[1][v, n]} against {want[0][v, n], want[1][v, n]}; "
+                    f"{name} rows max abs {np.abs(a - b).max():.3e}")
+                if not np.allclose(a, b, **TOL):
+                    raise AssertionError(f"dry run position differs beyond a near-tie at "
+                                         f"video {v} frame {n}")
+    pipeline = run_pipeline_dryrun(4, devices=[gpu] * 4)
+    if pipeline != (3, "fused"):
+        raise AssertionError(f"run_pipeline_dryrun(4) returned {pipeline}")
+    log(f"run_multichip_dryrun(4) on {gpu}: total {got[2]} as on CPU slots, "
+        f"{differ.shape[0]} position(s) differing; run_pipeline_dryrun(4): {pipeline}")
+
+    # ---- (e) times, in turns (the order reversed every other round); the
+    # first round is the warm-up
+    frame_mesh = make_mesh("frame", devices=[gpu] * 2)
+    walls = {k: [] for k in ("library", "library-mesh-1", "library-mesh-2",
+                             "track_video", "track_video-mesh-2")}
+    with open_video(str(meta)) as video:
+        runs = {
+            "library": lambda i: run_library(lib8, tmp / f"t9-lib-{i}")[1],
+            "library-mesh-1": lambda i: run_library(lib8, tmp / f"t9-m1-{i}",
+                                                    mesh=meshes[1])[1],
+            "library-mesh-2": lambda i: run_library(lib8, tmp / f"t9-m2-{i}",
+                                                    mesh=meshes[2])[1],
+            "track_video": lambda i: track_tables(video, config, meta, tmp / f"t9-tv-{i}",
+                                                  scan="device", device=gpu)[1],
+            "track_video-mesh-2": lambda i: track_tables(
+                video, config, meta, tmp / f"t9-tvm-{i}", scan="device",
+                mesh=frame_mesh)[1],
+        }
+        for i in range(4):
+            for key in (list(runs) if i % 2 else list(runs)[::-1]):
+                wall = runs[key](i)
+                if i:
+                    walls[key].append(wall)
+        # The host stages of one more track_video run each.
+        stages = {}
+        for key, kw in (("track_video", dict(device=gpu)),
+                        ("track_video-mesh-2", dict(mesh=frame_mesh))):
+            stages[key] = StageTimes()
+            track_tables(video, config, meta, tmp / f"t9-stages-{key}", scan="device",
+                         stage_times=stages[key], **kw)
+    med = {key: statistics.median(x) for key, x in walls.items()}
+    for key, st in stages.items():
+        log(f"[{card}] {key}: StageTimes (host seconds) of one more run {st.as_dict()}")
+    frames8 = 8 * N_FRAMES
+    for key, base in (("library-mesh-1", "library"), ("library-mesh-2", "library-mesh-1"),
+                      ("track_video-mesh-2", "track_video")):
+        n = N_FRAMES if key.startswith("track") else frames8
+        log(f"[{card}] {key}: {med[key]:.4f} s, {n / med[key]:.1f} frames/s (median of 3 "
+            f"warm runs: {', '.join(f'{x:.4f}' for x in walls[key])}); {base} in turns "
+            f"{med[base]:.4f} s ({', '.join(f'{x:.4f}' for x in walls[base])}); "
+            f"{key} / {base} {med[key] / med[base]:.3f}")
+    return dict(track_video=tv_launches[(2, "device")],
+                library=lib_launches["2-slot"], cli=cli_launches), med
 
 
 def main() -> int:
@@ -1181,6 +1453,10 @@ def main() -> int:
         # ---- phase 8: the command line ----
         cli_file, cli_lib, cli_times = cli_phase(tmp, meta, lib8, want8, card)
 
+        # ---- phase 9: the mesh ----
+        mesh_launches, mesh_times = mesh_phase(tmp, meta, lib8, want8, dev_tables, card,
+                                               config, rng)
+
     log(json.dumps({"library": {
         "frames": 8 * N_FRAMES, "loop_s": lib_times["loop_s"], "library_s": lib_times["lib_s"],
         "peak_device_bytes": lib_times["peak"], "budget_estimate_bytes": lib_times["estimate"],
@@ -1193,6 +1469,12 @@ def main() -> int:
         "two_ranks_library_s": cli_times["ranks_library_s"],
         "two_ranks_per_file_launches": cli_times["ranks_file_launches"],
         "two_ranks_library_launches": cli_times["ranks_library_launches"]}}))
+    log(json.dumps({"mesh": {
+        "library_s": mesh_times["library"], "library_mesh_1_s": mesh_times["library-mesh-1"],
+        "library_mesh_2_slots_s": mesh_times["library-mesh-2"],
+        "track_video_s": mesh_times["track_video"],
+        "track_video_mesh_2_slots_s": mesh_times["track_video-mesh-2"],
+        "launches": mesh_launches}}))
     log(card)
     # No single PyTorch call computes either kernel's function: library_ms
     # is null for both.
@@ -1202,6 +1484,8 @@ def main() -> int:
          "replaces": "hsip_tpu/kernels/pallas_preprocess.py:131",
          "launches": launches[0], "launches_library": lib_launches[0],
          "launches_cli": cli_file[0], "launches_cli_library": cli_lib[0],
+         "launches_mesh": mesh_launches["track_video"][0],
+         "launches_mesh_library": mesh_launches["library"][0],
          "max_abs_err": band_err,
          "ms": band_ms, "plain_ms": band_plain_ms,
          "bound_ms": band_bound_ms, "bound_by": band_bound_by,
@@ -1212,7 +1496,10 @@ def main() -> int:
          "launches": launches[1], "launches_library": lib_launches[1],
          "videos_library": lib_launches[2],
          "launches_cli": cli_file[1], "launches_cli_library": cli_lib[1],
-         "videos_cli_library": cli_lib[2], "max_abs_err": scan_err,
+         "videos_cli_library": cli_lib[2],
+         "launches_mesh": mesh_launches["track_video"][1],
+         "launches_mesh_library": mesh_launches["library"][1],
+         "max_abs_err": scan_err,
          "ms": scan_ms, "plain_ms": scan_plain_ms,
          "bound_ms": scan_bound_ms, "bound_by": scan_bound_by,
          "share_of_bound": scan_bound_ms / scan_ms, "library_ms": None,

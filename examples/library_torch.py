@@ -10,11 +10,12 @@ pipeline embeds, importing only ``hsip_tpu_torch``:
   (``track_collection_device`` — profiles never leave the device),
 * print per-video results and the velocity history of one run.
 
-    python examples/library_torch.py [workdir] [--device NAME]
+    python examples/library_torch.py [workdir] [--device NAME] [--mesh]
 
 The default device is the CUDA card, and the run fails without one;
 ``--device cpu`` names the CPU, where the kernels' plain PyTorch versions
-run. (Sharding the video axis over several GPUs is not ported yet.)
+run. ``--mesh`` shards each shape group's videos over all local cards
+(with ``--device cpu``, over one CPU slot).
 """
 
 import argparse
@@ -49,6 +50,8 @@ def main(argv=None) -> int:
     parser.add_argument("workdir", nargs="?", default="./hsip-torch-library-demo")
     parser.add_argument("--device", default=None, metavar="NAME",
                         help="'cuda' (default), 'cuda:N' or 'cpu'")
+    parser.add_argument("--mesh", action="store_true",
+                        help="shard the video axis over the local cards")
     args = parser.parse_args(argv)
 
     from hsip_tpu_torch.track import track_collection_device
@@ -68,10 +71,21 @@ def main(argv=None) -> int:
                         files=["run-3-"]),
     ]
 
+    mesh = None
+    if args.mesh:
+        from hsip_tpu_torch.parallel import make_mesh
+
+        # Local cards: in a multi-process run each process tracks its own
+        # videos, so the mesh spans only its own cards (the rule the CLI's
+        # --mesh follows).
+        mesh = make_mesh("video", devices=None if device.type == "cuda" else [device])
+        print(f"Sharding the video axis over {mesh.size} devices")
+
     with open_collection(src.video_path) as coll:
         print(coll.summary())
         outputs = track_collection_device(
-            coll, FlameDetectorConfig(), source_config=src, device=device
+            coll, FlameDetectorConfig(), source_config=src, device=device,
+            mesh=mesh,
         )
 
         # Report inside the with-block: the videos are still open here, so

@@ -26,6 +26,8 @@ Layout (mirrors ``hsip_tpu``; each file keeps its counterpart's name):
 * ``pipeline``                — per-file and per-source runners, the table writers
 * ``parallel/processor``      — ``VideoProcessor``: whole recordings spread over
   processes (``torch.distributed``, gloo), ``initialize_distributed``
+* ``parallel/{mesh,sharding,dryrun}`` — device meshes in one process: videos
+  or frames sharded over the local cards, the one-band halo, the dry runs
 * ``cli``                     — the ``hsip-torch`` command (``python -m hsip_tpu_torch.cli``)
 * ``utils``                   — device choice, logging, checkpoint, summary
 * ``utils/profiling``         — ``StageTimes``; ``profile_trace`` (``torch.profiler``)

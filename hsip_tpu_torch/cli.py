@@ -34,8 +34,10 @@ Config file schema (TOML):
     gaussian_sigma = 1.5
     # ... any FlameDetectorConfig field
 
-``--mesh`` (sharding a shape group over several GPUs) is parsed and
-refused: it is not ported yet.
+``--library --mesh [N]`` shards each shape group's videos over N local
+cards in one process (all of them when N is omitted or 0; under
+``--distributed`` the rank's own cards); with ``--device cpu`` it puts N
+slots on the CPU.
 """
 
 from __future__ import annotations
@@ -210,8 +212,9 @@ def build_parser() -> argparse.ArgumentParser:
         default=None,
         metavar="N",
         help="with --library: shard each shape group's video axis over N "
-             "GPUs (omit N — or pass 0 — for all local GPUs). Not ported "
-             "yet: the command refuses it",
+             "GPUs (omit N — or pass 0 — for all local GPUs; under "
+             "--distributed, the process's own GPUs). With --device cpu: N "
+             "slots on the CPU (one when N is omitted)",
     )
     parser.add_argument(
         "--info",
@@ -330,6 +333,32 @@ def _print_info(sources: List[VideoSourceConfig]) -> int:
     return 0
 
 
+def _mesh_devices(n: int, device, named: Optional[str], processor) -> list:
+    """The slots ``--mesh N`` may take: on the CPU N (at least one); a
+    card named with its index alone; else the local cards, under
+    ``--distributed`` this rank's share of them — disjoint cards when the
+    machine has one or more a rank (``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE`` when a launcher sets them, else the rank and the
+    process count), else the card the rank computes on, shared."""
+    import os
+
+    import torch
+
+    if device.type == "cpu":
+        return [device] * max(1, n)
+    if named is not None and torch.device(named).index is not None:
+        return [device]
+    count = torch.cuda.device_count()
+    if processor is None:
+        return [torch.device("cuda", i) for i in range(count)]
+    rank = int(os.environ.get("LOCAL_RANK", processor.rank))
+    ranks = int(os.environ.get("LOCAL_WORLD_SIZE", processor.size))
+    per = count // ranks
+    if per == 0:
+        return [device]
+    return [torch.device("cuda", i) for i in range(rank * per, (rank + 1) * per)]
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
 
@@ -401,14 +430,6 @@ def main(argv: Optional[List[str]] = None) -> int:
               "(library mode always runs the batched on-device path)",
               file=sys.stderr)
         return 2
-    if args.mesh is not None:
-        # Refused, never run unsharded: the tables would be right and the
-        # user's request silently dropped.
-        print("--mesh: sharding a shape group's video axis over several GPUs "
-              "is not ported yet (run --library without --mesh; "
-              "--distributed spreads recordings over processes)",
-              file=sys.stderr)
-        return 2
 
     # The process group comes first, so that the rank is known when the
     # device is chosen (several ranks of one machine take its cards in turn).
@@ -443,6 +464,24 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"--device {args.device or 'cuda'}: {exc}", file=sys.stderr)
             return 2
 
+    mesh = None
+    if args.mesh is not None:
+        from .parallel.mesh import make_mesh
+
+        # LOCAL cards: under --distributed each process tracks its own
+        # recordings, so its mesh spans only its own cards.
+        slots = _mesh_devices(args.mesh, device, args.device, processor)
+        if args.mesh > len(slots):
+            # Never run with fewer slots than asked, nor unsharded.
+            print(f"--mesh {args.mesh}: only {len(slots)} local device(s) "
+                  "available (omit N or pass 0 for all local devices)",
+                  file=sys.stderr)
+            return 2
+        mesh = make_mesh("video", devices=slots, n_devices=args.mesh or None)
+        if not args.quiet and (processor is None or processor.is_root):
+            print(f"Sharding video axis over {mesh.size} devices"
+                  + (" per process" if processor is not None else ""))
+
     from . import pipeline
     from .utils.profiling import profile_trace
 
@@ -460,6 +499,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                     resume=resume,
                     failure_cache=failure_cache,
                     device=device,
+                    mesh=mesh,
                 )
             else:
                 outs = pipeline.process_video_source(

@@ -763,15 +763,18 @@ def process_video_source_library(
     The replay costs one map phase per video; table throughput is
     unaffected when figures are off.
 
-    ``mesh`` (sharding each shape group's video axis across devices) is
-    not ported: anything but ``None`` raises ``NotImplementedError``.
+    With ``mesh`` (a :class:`~hsip_tpu_torch.parallel.mesh.Mesh` with a
+    ``'video'`` axis), each shape group's videos are sharded over the
+    mesh's slots, each slot tracking its own on its own device (tables
+    byte-identical to the unsharded run); ``device`` then defaults to the
+    mesh's first slot and serves the figure replay.
     """
     import time as _time
 
     from .track.batch import track_collection_device
 
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded library mode is not ported yet")
+    if mesh is not None and device is None:
+        device = mesh.devices.flat[0]
     dev = resolve_device(device)
     detector_config = detector_config or FlameDetectorConfig()
     is_root = processor is None or processor.is_root

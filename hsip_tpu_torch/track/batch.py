@@ -8,7 +8,9 @@ map phase, profiles padded to a common length and stacked, one scan over
 the video axis). On a CUDA device the scan is the CUDA tracking-scan kernel
 and the band chain the CUDA band kernel; on a CPU device their plain
 PyTorch versions run. There is no other choice of scan and no degrade from
-one to the other.
+one to the other. Over a mesh (``mesh=``) each group's videos split into
+contiguous shards over the slots of its 'video' axis, and each slot maps,
+collates and scans its own videos on its own device.
 
 :class:`ScanHistory` and :func:`build_device_scan_output` are plain numpy
 copies of the JAX package's: the scan emits integer positions; the exit /
@@ -219,7 +221,13 @@ def track_collection_device(
     steps. Per-video results are independent, so sub-batching never changes
     output tables.
 
-    ``mesh`` (sharding the video axis over devices) is not ported.
+    With ``mesh`` (a :class:`~hsip_tpu_torch.parallel.mesh.Mesh` with a
+    'video' axis) the groups run on the mesh's slots instead of ``device``:
+    each group's videos split into contiguous shards, one a slot (the last
+    slots get none when V is below the slot count), each mapped, collated
+    and scanned on its slot's device; on the fused path each slot runs its
+    own group programs (:mod:`.fused`). Per-video results are independent,
+    so the tables equal the unsharded run's.
 
     ``stage_times`` (a :class:`~hsip_tpu_torch.utils.StageTimes`)
     accumulates host wall-clock per pipeline stage across ALL
@@ -230,9 +238,7 @@ def track_collection_device(
     """
     from ..utils.backend import resolve_device
 
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded library mode is not ported yet")
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else None
     config = config or FlameDetectorConfig()
     LAST_GROUP_PATHS.clear()
     videos = list(collection)
@@ -247,7 +253,7 @@ def track_collection_device(
             group_outputs = _track_uniform_videos(
                 [videos[i] for i in sub], w, config, source_config,
                 use_absolute_time, chunk_size,
-                stage_times=stage_times, device=dev,
+                stage_times=stage_times, device=dev, mesh=mesh,
             )
             for i, out in zip(sub, group_outputs):
                 outputs[i] = out
@@ -292,19 +298,22 @@ def _track_uniform_videos(
     chunk_size: Optional[int],
     stage_times=None,
     device=None,
+    mesh=None,
 ) -> List[TrackingOutput]:
-    """One device scan over videos sharing a frame shape (the scan
-    consumes width-``w`` profiles; height only shapes the map phase)."""
-    from ..utils.backend import resolve_device
+    """One device scan a slot over videos sharing a frame shape (the scan
+    consumes width-``w`` profiles; height only shapes the map phase). The
+    slots are ``device`` without a mesh, else ``mesh``'s 'video' slots, and
+    the videos split into contiguous shards over them."""
+    from ..parallel.mesh import slot_shards
     from ..utils.profiling import StageTimes
     from .cuda_scan import cuda_tracking_scan
     from .device_scan import tracking_scan_plain
-    from .fused import track_uniform_videos_fused
+    from .fused import _FusedResult, track_uniform_videos_fused
     from .scan import compute_profiles_batched, scan_params
 
-    dev = resolve_device(device)
     if stage_times is None:
         stage_times = StageTimes()  # unobserved; keeps the code one-path
+    slots = [device] if mesh is None else mesh.slots("video")
     method = source_config.detection_method if source_config else "combined"
     use_frame_diff = source_config.use_frame_diff if source_config else True
 
@@ -313,18 +322,23 @@ def _track_uniform_videos(
     # chunked path when preconditions fail — track/fused.py.)
     fused = track_uniform_videos_fused(
         videos, w, config, source_config, use_absolute_time,
-        stage_times=stage_times, device=dev,
+        stage_times=stage_times, device=device, mesh=mesh,
     )
     if fused is not None:
         LAST_GROUP_PATHS.append("fused")
         return fused
     LAST_GROUP_PATHS.append("chunked")
 
-    # --- map phase per video (chunked, packed on-device decode) ---
+    shards = slot_shards(slots, len(videos))
+    video_device = {i: slot for slot, idxs in shards for i in idxs}
+
+    # --- map phase per video (chunked, packed on-device decode), on its
+    # slot's device ---
     # A small thread pool overlaps one video's HOST work (native counts +
     # band gather, both GIL-releasing) with another's transfer and device
     # work. Order is preserved via executor.map.
-    def _map_one(video) -> FrameProfiles:
+    def _map_one(i) -> FrameProfiles:
+        video = videos[i]
         bg = float(np.max(video[0]))
         read_packed, read_band, count_fn, storage_depth = video.staging_paths()
         cs = chunk_size or (4096 if read_band is not None else 256)
@@ -347,16 +361,16 @@ def _track_uniform_videos(
             band_bit_depth=storage_depth,
             keep_device=True,
             stage_times=stage_times,
-            device=dev,
+            device=video_device[i],
         )
 
     if len(videos) > 1:
         from concurrent.futures import ThreadPoolExecutor
 
         with ThreadPoolExecutor(max_workers=min(4, len(videos))) as pool:
-            profiles: List[FrameProfiles] = list(pool.map(_map_one, videos))
+            profiles: List[FrameProfiles] = list(pool.map(_map_one, range(len(videos))))
     else:
-        profiles = [_map_one(v) for v in videos]
+        profiles = [_map_one(0)]
 
     # --- pad to a common step count; padding rows are 'empty' (no-ops) ---
     with stage_times.stage("collate"):
@@ -368,32 +382,13 @@ def _track_uniform_videos(
         cals = np.zeros(V, dtype=np.float32)
         fpss = np.zeros(V, dtype=np.float32)
         max_disps = np.zeros(V, dtype=np.int32)
-
-        # Profile lines stay DEVICE-resident: each video's (m, W) stack
-        # lands in its rows of one zeroed (V, n_max, W) tensor. Only the
-        # line sets the detection method reads are stacked; the scan takes
-        # None for the others.
-        def _stacked():
-            return torch.zeros((V, n_max, w), dtype=torch.float32, device=dev)
-
-        sob = grad = intens = None
-        if method == "combined":
-            sob, grad = _stacked(), _stacked()
-        else:
-            intens = _stacked()
         calibs: List[Tuple[float, float]] = []
         for i, (video, p) in enumerate(zip(videos, profiles)):
             m = p.frame_indices.size
             fi[i, :m] = p.frame_indices
             fi[i, m:] = (p.frame_indices[-1] if m else 0) + np.arange(1, n_max - m + 1)
-            intens_i, has_prior_i = p.select_intensity(method, use_frame_diff)
-            if method == "combined":
-                sob[i, :m] = p.sobel_lines
-                grad[i, :m] = p.gradient_lines
-            else:
-                intens[i, :m] = intens_i
             empty[i, :m] = p.signal_counts / p.total_pixels < MIN_SIGNAL_FRACTION
-            has_prior[i, :m] = has_prior_i
+            has_prior[i, :m] = p.select_intensity(method, use_frame_diff)[1]
             if source_config is not None:
                 cal, off = source_config.get_calibration_for_file(video.filepath.name)
             else:
@@ -403,28 +398,55 @@ def _track_uniform_videos(
             fpss[i] = video.frame_rate
             max_disps[i] = FlameTracker(config, video.frame_rate, cal).max_displacement_px
 
-    if n_max == 0:  # every frame of every video skipped: nothing to scan
-        from .fused import _FusedResult
-
-        return _outputs_from_scan(
-            _FusedResult(np.zeros((V, 0), np.int32)), videos, profiles, fi,
-            empty, calibs, use_absolute_time, config, stage_times=stage_times,
-        )
-
-    # --- one device scan over the whole video axis: the CUDA kernel on a
-    # CUDA device, the plain PyTorch scan on the CPU ---
+    # --- one device scan a slot over its videos: the CUDA kernel on a CUDA
+    # device, the plain PyTorch scan on the CPU. Profile lines stay
+    # DEVICE-resident: each video's (m, W) stack lands in its rows of its
+    # slot's zeroed (V_s, n_s, W) tensor. Only the line sets the detection
+    # method reads are stacked; the scan takes None for the others. ---
     params = scan_params(config, 1.0, 1.0, method)
-    params.update(calibration=cals, frame_rate=fpss, max_displacement_px=max_disps)
-    scan = tracking_scan_plain if dev.type == "cpu" else cuda_tracking_scan
-    with stage_times.stage("scan_dispatch"):
-        res = scan(
-            torch.from_numpy(fi).to(dev), sob, grad,
-            torch.from_numpy(empty).to(dev), torch.from_numpy(has_prior).to(dev),
-            width=w, intensity_lines=intens, **params,
-        )
+    scanned = []  # (video indices, steps, final positions on the device)
+    for slot, idxs in shards:
+        n_s = max(profiles[i].frame_indices.size for i in idxs)
+        if n_s == 0:  # every frame of the slot's videos skipped
+            continue
+        with stage_times.stage("collate"):
+            def _stacked():
+                return torch.zeros((len(idxs), n_s, w), dtype=torch.float32,
+                                   device=slot)
+
+            sob = grad = intens = None
+            if method == "combined":
+                sob, grad = _stacked(), _stacked()
+            else:
+                intens = _stacked()
+            for j, i in enumerate(idxs):
+                p = profiles[i]
+                m = p.frame_indices.size
+                if method == "combined":
+                    sob[j, :m] = p.sobel_lines
+                    grad[j, :m] = p.gradient_lines
+                else:
+                    intens[j, :m] = p.select_intensity(method, use_frame_diff)[0]
+        scan = tracking_scan_plain if slot.type == "cpu" else cuda_tracking_scan
+        with stage_times.stage("scan_dispatch"):
+            res = scan(
+                torch.from_numpy(fi[idxs, :n_s]).to(slot), sob, grad,
+                torch.from_numpy(empty[idxs, :n_s]).to(slot),
+                torch.from_numpy(has_prior[idxs, :n_s]).to(slot),
+                width=w, intensity_lines=intens,
+                **dict(params, calibration=cals[idxs], frame_rate=fpss[idxs],
+                       max_displacement_px=max_disps[idxs]),
+            )
+        scanned.append((idxs, n_s, res.final_position))
+
+    # The fetch, after every slot's scan is enqueued.
+    finals = np.full((V, n_max), -1, dtype=np.int32)
+    with stage_times.stage("d2h"):
+        for idxs, n_s, positions in scanned:
+            finals[idxs, :n_s] = positions.cpu().numpy()
     return _outputs_from_scan(
-        res, videos, profiles, fi, empty, calibs, use_absolute_time, config,
-        stage_times=stage_times,
+        _FusedResult(finals), videos, profiles, fi, empty, calibs,
+        use_absolute_time, config, stage_times=stage_times,
     )
 
 

@@ -23,10 +23,20 @@ group is enqueued. PyTorch's launches do not block the host, so group g's
 device program runs under group g+1's host gather, and the copy stream
 lets group g+1's transfers overlap it.
 
+**Over a mesh** (a :class:`~hsip_tpu_torch.parallel.mesh.Mesh` with a
+'video' axis) the videos split into contiguous shards, one a slot; each
+slot unpacks, runs the band chain and scans only its own videos, on its
+own device, through its own copy stream. Where the JAX package runs one
+``shard_map`` dispatch (``_fused_group_count(n, mesh) == 1``), each slot
+here keeps its group pipeline, and the groups are gathered round robin
+over the slots, so every slot's first program is enqueued after one gather
+each; positions are fetched only after every slot's programs are enqueued.
+The budget is per card: slots that share a card share its limit.
+
 What the JAX module models of its link to a remote device (lazy or eager
 puts, ``one_put`` against ``put_train``, the mesh put trains) has no
 counterpart here: a pinned buffer, a copy stream and an event are the whole
-transfer. Sharding over a mesh is not ported.
+transfer.
 
 Bit-parity: the device chain is the same ``band_to_profiles`` and scan
 every other path uses; per-video results are independent, so grouping
@@ -323,9 +333,10 @@ def track_uniform_videos_fused(
     use_absolute_time: bool,
     stage_times=None,
     device=None,
+    mesh=None,
 ) -> Optional[List["TrackingOutput"]]:  # noqa: F821 — runtime import below
     """Fused library tracking for a uniform-shape video group on ``device``
-    (``None`` means ``cuda``).
+    (``None`` means ``cuda``), or on the 'video' slots of ``mesh``.
 
     Returns the per-video :class:`TrackingOutput` list (identical to the
     serial host scan), or ``None`` when the group doesn't satisfy the fast
@@ -336,14 +347,15 @@ def track_uniform_videos_fused(
     - no per-video skip lists;
     - no even morphology kernel over a folding band;
     - :func:`_fused_budget_bytes` fits the device budget
-      (:func:`_fused_limit_bytes`);
+      (:func:`_fused_limit_bytes`), summed over the slots of each card;
     - ``HSIP_FUSED`` is not ``0``.
 
-    The library is split into G pipelined groups
+    Each slot's videos are split into G pipelined groups
     (:func:`_fused_group_count`): each group is gathered, copied and
-    enqueued before the next group's gather starts, and results are
-    fetched only after every group is enqueued. Per-video results are
-    independent, so grouping is output-invariant by construction.
+    enqueued before the next group's gather starts (round robin over the
+    slots), and results are fetched only after every group is enqueued.
+    Per-video results are independent, so grouping is output-invariant by
+    construction.
 
     Videos with dark preambles/tails skip the transfer and the device work
     for their empty ranges (the empty-range clip — :func:`_clip_ranges`).
@@ -359,13 +371,16 @@ def track_uniform_videos_fused(
     plus, under ``h2d``, the wait for the group's copy event; the wait for
     the device lands in ``d2h``.
     """
+    from ..kernels.cuda_preprocess import cuda_band_profiles
     from ..kernels.preprocess import band_folds, band_margin, reflect_indices
+    from ..parallel.mesh import slot_shards
     from ..utils.backend import resolve_device
     from ..utils.profiling import StageTimes
     from . import batch as _batch
+    from .cuda_scan import cuda_tracking_scan
     from .scan import MIN_SIGNAL_FRACTION, NOISE_THRESHOLD_FLOOR
 
-    dev = resolve_device(device)
+    slots = [resolve_device(device)] if mesh is None else mesh.slots("video")
     if os.environ.get("HSIP_FUSED", "1") == "0":
         return None
     if source_config is not None and tuple(source_config.skip_frames):
@@ -397,9 +412,12 @@ def track_uniform_videos_fused(
     V = len(videos)
     n_max = max(len(v) for v in videos)
     B = 2 * margin + 1
-    n_groups = _fused_group_count(V)
-    if (_fused_budget_bytes(V, n_max, w, B, depth0, n_groups)
-            > _fused_limit_bytes(dev)):
+    shards = slot_shards(slots, V)
+    need: dict = {}
+    for slot, idxs in shards:
+        need[slot] = need.get(slot, 0) + _fused_budget_bytes(
+            len(idxs), n_max, w, B, depth0, _fused_group_count(len(idxs)))
+    if any(n > _fused_limit_bytes(card) for card, n in need.items()):
         return None
 
     if stage_times is None:
@@ -407,13 +425,12 @@ def track_uniform_videos_fused(
 
     rows = reflect_indices(h // 2, margin, h)
     rnb = w * depth0 // 8
-    on_card = dev.type == "cuda"
-    if on_card:
-        compute = torch.cuda.current_stream(dev)
-        copies = _copy_stream(dev)
+    on_card = slots[0].type == "cuda"
 
-    def _stage_dispatch_group(group: List[int]) -> dict:
-        """Gather, copy and ENQUEUE one video group; no result fetch.
+    def _stage_dispatch_group(group: List[int], dev: torch.device,
+                              slot: int) -> dict:
+        """Gather, copy and ENQUEUE one video group on slot ``slot``'s
+        device ``dev``; no result fetch.
 
         Returns everything :func:`_finish_group` needs. On return the
         group's copies have completed (their event is waited for), so the
@@ -421,7 +438,8 @@ def track_uniform_videos_fused(
         next group — which is the pipelining: this group's program runs on
         the device while the next group gathers on the host.
         """
-        trace = {"gather_start_t": time.perf_counter()}
+        trace = {"gather_start_t": time.perf_counter(), "slot": slot,
+                 "device": str(dev)}
         g_videos = [videos[i] for i in group]
         g_staging = [staging[i] for i in group]
         Vg = len(g_videos)
@@ -550,6 +568,8 @@ def track_uniform_videos_fused(
         meta_np[0], meta_np[1], meta_np[2] = fidx_s, empty_s, prior_s
         with stage_times.stage("h2d"):
             if on_card:
+                compute = torch.cuda.current_stream(dev)
+                copies = _copy_stream(dev)
                 with torch.cuda.stream(copies):
                     payload = torch.empty((Vg, L, B, rnb), dtype=torch.uint8,
                                           device=dev)
@@ -574,11 +594,14 @@ def track_uniform_videos_fused(
                 meta = meta_h
 
         trace["dispatch_t"] = time.perf_counter()
+        launched = (cuda_band_profiles.launches, cuda_tracking_scan.launches)
         with stage_times.stage("device_dispatch"):
             finals_dev = _fused_program(
                 payload, bgs, meta, cals, fpss, mds, w, depth0, config,
                 method, use_frame_diff,
             )
+            trace["launches"] = (cuda_band_profiles.launches - launched[0],
+                                 cuda_tracking_scan.launches - launched[1])
             del payload, meta
             if on_card:
                 # The one fetch of the group, enqueued behind its program;
@@ -602,6 +625,7 @@ def track_uniform_videos_fused(
         _LAST_PIPELINE_TRACE.append(trace)
 
         return {
+            "first": group[0],
             "finals": finals,
             "fetched": fetched,
             "videos": g_videos,
@@ -643,15 +667,23 @@ def track_uniform_videos_fused(
     _LAST_CLIPPED = False
     _LAST_PIPELINE_TRACE.clear()
 
-    bounds = np.linspace(0, V, n_groups + 1).astype(int)
-    groups = [list(range(bounds[g], bounds[g + 1]))
-              for g in range(n_groups) if bounds[g + 1] > bounds[g]]
+    slot_groups = []  # per slot: its pipelined groups of video indices
+    for slot, idxs in shards:
+        g = _fused_group_count(len(idxs))
+        bounds = np.linspace(0, len(idxs), g + 1).astype(int)
+        slot_groups.append([idxs[bounds[i]:bounds[i + 1]]
+                            for i in range(g) if bounds[i + 1] > bounds[i]])
 
-    # The pipeline: stage+enqueue every group back to back (group g's
-    # program runs under group g+1's host gather), then fetch results in
-    # order — the only blocking device waits of the whole call.
-    pending = [_stage_dispatch_group(g) for g in groups]
+    # The pipeline: stage+enqueue every group back to back, round robin
+    # over the slots (group g's program runs under the next group's host
+    # gather), then fetch results in video order — the only blocking
+    # device waits of the whole call.
+    pending = [
+        _stage_dispatch_group(groups[r], shards[s][0], s)
+        for r in range(max(len(groups) for groups in slot_groups))
+        for s, groups in enumerate(slot_groups) if r < len(groups)
+    ]
     outputs: List = []
-    for rec in pending:
+    for rec in sorted(pending, key=lambda rec: rec["first"]):
         outputs.extend(_finish_group(rec))
     return outputs

@@ -8,7 +8,9 @@ the band chain (the CUDA band kernel on a GPU). The scan then runs either
 on the host in float64 (:func:`.host_scan.run_tracking_scan`, the copy of
 the JAX package's host scan) or on the device (:func:`run_tracking_scan_device`, the CUDA
 tracking-scan kernel on a GPU); in both cases the tables come from the
-float64 host code, so they are byte-identical across backends.
+float64 host code, so they are byte-identical across backends. Over a mesh
+(:func:`track_video` with ``mesh=``) the map phase shards the frames over
+the mesh's slots with a one-band halo (:func:`_compute_profiles_sharded`).
 """
 
 from __future__ import annotations
@@ -86,6 +88,18 @@ def _stage(host: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(host))
 
 
+def _runs(idxs: np.ndarray):
+    """``idxs`` split into runs of consecutive frame indices."""
+    return np.split(idxs, np.where(np.diff(idxs) != 1)[0] + 1)
+
+
+def _multi_read(read, idxs: np.ndarray) -> np.ndarray:
+    """``read(start, stop)`` of each run of ``idxs``, concatenated: one
+    spanning read would decode every skipped frame in the gaps."""
+    parts = [read(int(r[0]), int(r[-1]) + 1) for r in _runs(idxs)]
+    return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+
 def compute_profiles_batched(
     read_batch: Callable[[int, int], np.ndarray],
     n_frames: int,
@@ -158,14 +172,6 @@ def compute_profiles_batched(
         n_rows = needed.size
         chunks.append((pos, stop, needed, offset, n_rows))
         pos = stop
-
-    def _runs(needed):
-        return np.split(needed, np.where(np.diff(needed) != 1)[0] + 1)
-
-    def _multi_read(read, needed):
-        """Read the needed frames as one batch, split at skip gaps."""
-        parts = [read(int(r[0]), int(r[-1]) + 1) for r in _runs(needed)]
-        return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
     def _multi_read_fused(needed):
         """Fused band+counts staging (skip-gap aware); None when the fused
@@ -293,6 +299,167 @@ def compute_profiles_batched(
         gradient_lines=gradient_lines,
         intensity_lines=intensity_lines,
         raw_center_lines=raw_center_lines,
+        signal_counts=signal_counts,
+        has_prior=has_prior,
+        width=w,
+        total_pixels=h * w,
+        staging_route=route,
+    )
+
+
+def _compute_profiles_sharded(
+    video,
+    background_scalar: float,
+    config: FlameDetectorConfig,
+    skip_frames: Sequence[int],
+    mesh,
+    frames_per_shard: int = 512,
+    keep_device: bool = False,
+    need_intensity: bool = True,
+    need_raw: bool = True,
+    progress: Optional[Callable[[int, int], None]] = None,
+    stage_times=None,
+) -> MapProfiles:
+    """Map phase over a mesh: the frames split along its 'frame' axis, one
+    contiguous shard a slot, with the one-band halo for the differencing
+    priors (:mod:`hsip_tpu_torch.parallel.sharding`).
+
+    Counterpart of :func:`hsip_tpu.track.scan._compute_profiles_sharded`.
+    Streams the recording in chunks of ``frames_per_shard * slots`` with a
+    one-frame overlap (each chunk's first frame is the previous chunk's
+    last, carrying the differencing prior; its output row is dropped), so
+    the host and device footprint stays bounded on long recordings.
+    ``skip_frames`` are compacted out before sharding (each processed frame
+    diffs against the previous PROCESSED frame), and an even kernel over a
+    folding band takes the float64 host ops, as in
+    :func:`compute_profiles_batched`.
+
+    Where the codec gathers the packed band rows and counts on the host,
+    it gathers each chunk in one pass and each slot receives only its
+    contiguous (ragged) share of the band bytes — the same staging as the
+    unsharded map phase, so the profiles are bit-equal to its; a slot past
+    a short last chunk's frames sits that chunk out. Otherwise each slot
+    receives its decoded frames, the chunk padded to the slot count with
+    copies of its last frame. With ``keep_device`` the line sets come back
+    as tensors on the first slot's device.
+    """
+    from ..parallel.mesh import frame_sharding
+    from ..parallel.sharding import make_sharded_profile_fn, shard_packed_band_profiles
+
+    slots = frame_sharding(mesh, "frame")
+    first = slots.slots[0]
+    n_shards = len(slots.slots)
+    h, w = video.frame_shape
+    k, sigma = config.morphology_kernel_size, config.gaussian_sigma
+    margin = band_margin(k, sigma)
+    if k % 2 == 0 and band_folds(h // 2, margin, h):
+        exact = _compute_profiles_host_exact(
+            video.read_batch, len(video), video.frame_shape, background_scalar,
+            config, skip_frames, progress=progress,
+        )
+        exact = MapProfiles(**vars(exact), staging_route="host_exact")
+        return profiles_to_torch(exact, first) if keep_device else exact
+
+    if stage_times is None:
+        stage_times = StageTimes()
+    skip = set(int(s) for s in skip_frames)
+    processed = np.array([i for i in range(len(video)) if i not in skip], dtype=np.int64)
+    m = processed.size
+    noise_threshold = max(NOISE_THRESHOLD_FLOOR, background_scalar * 0.5)
+    bg32 = float(np.float32(background_scalar))
+    thr32 = float(np.float32(config.frame_diff_threshold))
+    chunk = max(n_shards, frames_per_shard * n_shards)
+    band_rows = reflect_indices(h // 2, margin, h)
+    _read_packed, read_band, count_fn, depth = video.staging_paths()
+    use_band = read_band is not None and count_fn is not None
+    route = "band+counts" if use_band else "decoded"
+    profile_fn = None if use_band else make_sharded_profile_fn(mesh, h, w, k, sigma)
+
+    def _band_and_counts(idxs):
+        nonlocal route
+        if route == "band+counts":
+            parts = [video.band_bytes_and_counts(int(r[0]), int(r[-1]) + 1, band_rows,
+                                                 background_scalar, noise_threshold)
+                     for r in _runs(idxs)]
+            if len(parts) == 1 and parts[0] is not None:
+                return parts[0]
+            if all(p is not None for p in parts):
+                return (np.concatenate([p[0] for p in parts]),
+                        np.concatenate([p[1] for p in parts]))
+            route = "band"  # stale native library: two passes from here on
+        counts = _multi_read(
+            lambda a, b: count_fn(a, b, background_scalar, noise_threshold), idxs)
+        return _multi_read(lambda a, b: read_band(a, b, band_rows), idxs), counts
+
+    pending = []  # (start, stop, off, sob, grad, intens, raw, counts): slot lists
+    start = 0
+    while start < m:
+        stop = min(m, start + chunk)
+        lo_pos = max(0, start - 1)  # one-frame overlap carries the prior
+        idxs = processed[lo_pos:stop]
+        if use_band:
+            with stage_times.stage("read_gather"):
+                host, cnt = _band_and_counts(idxs)
+            shards = [(dev, a, b) for dev, (a, b)
+                      in zip(slots.slots, slots.bounds(idxs.size)) if b > a]
+            with stage_times.stage("h2d"):
+                staged = [_stage(host[a:b], dev) for dev, a, b in shards]
+            counts = [cnt[a:b] for _, a, b in shards]
+            with stage_times.stage("device_dispatch"):
+                shards = shard_packed_band_profiles(
+                    staged, bg32, thr32, morphology_kernel_size=k,
+                    gaussian_sigma=sigma, bit_depth=depth,
+                )
+            lines = [list(x) for x in zip(*shards)]
+        else:
+            idxs = np.concatenate([idxs, np.repeat(idxs[-1:], (-idxs.size) % n_shards)])
+            with stage_times.stage("read_gather"):
+                frames = _multi_read(video.read_batch, idxs)
+            with stage_times.stage("device_dispatch"):
+                *lines, counts = profile_fn(frames, background_scalar,
+                                            config.frame_diff_threshold,
+                                            noise_threshold)
+        pending.append((start, stop, start - lo_pos, *lines, counts))
+        start = stop
+        if progress is not None:
+            progress(stop, m)
+
+    def _rows(shards, off, n, dev=None):
+        """A chunk's rows from its slot shards: the overlap row (and any
+        padding) dropped; on ``dev``, or as numpy."""
+        if dev is None:
+            return np.concatenate([
+                s.cpu().numpy() if isinstance(s, torch.Tensor) else np.asarray(s)
+                for s in shards])[off:off + n]
+        return torch.cat([s.to(dev) for s in shards])[off:off + n]
+
+    signal_counts = np.zeros(m, dtype=np.int64)
+    wanted = (True, True, need_intensity, need_raw)
+    with stage_times.stage("drain"):
+        for start, stop, off, *_lines, counts in pending:
+            signal_counts[start:stop] = _rows(counts, off, stop - start)
+        if keep_device:
+            lines = [
+                torch.cat([_rows(p[3 + i], p[2], p[1] - p[0], first) for p in pending])
+                if pending else torch.zeros((0, w), dtype=torch.float32, device=first)
+                for i in range(4)
+            ]
+        else:
+            lines = [np.zeros((m, w), dtype=np.float32) for _ in range(4)]
+            for start, stop, off, *chunk_lines, _counts in pending:
+                for i, want in enumerate(wanted):
+                    if want:
+                        lines[i][start:stop] = _rows(chunk_lines[i], off, stop - start)
+
+    has_prior = np.ones(m, dtype=bool)
+    if m:
+        has_prior[0] = False
+    return MapProfiles(
+        frame_indices=processed,
+        sobel_lines=lines[0],
+        gradient_lines=lines[1],
+        intensity_lines=lines[2],
+        raw_center_lines=lines[3],
         signal_counts=signal_counts,
         has_prior=has_prior,
         width=w,
@@ -431,45 +598,65 @@ def track_video(
 
     The map phase runs on ``device`` (``None`` means ``cuda``); ``scan``
     picks where the tracker runs: 'host' (float64 numpy, supports viz
-    hooks) or 'device' (profiles never leave ``device``). The background
-    is frame 0's max unless given. ``mesh`` (frame sharding) is not ported.
+    hooks) or 'device' (profiles never leave the device). The background
+    is frame 0's max unless given.
+
+    With ``mesh`` (a :class:`~hsip_tpu_torch.parallel.mesh.Mesh` with a
+    'frame' axis) the map phase runs on the mesh's slots instead of
+    ``device``: the frames split over them with a one-band halo for the
+    differencing priors (:func:`_compute_profiles_sharded`), serial-identical
+    at any slot count; ``chunk_size`` then bounds the frames of a streamed
+    chunk (``chunk_size // slots`` a slot, default 512 a slot). It composes
+    with either scan: the device scan runs on the first slot's device.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded map phase is not ported yet")
     if scan not in ("host", "device"):
         raise ValueError(f"Unknown scan backend {scan!r} ('host' or 'device')")
     if scan == "device" and on_result is not None:
         raise ValueError("viz hooks require scan='host'")
-    dev = resolve_device(device)
+    if mesh is None:
+        dev = resolve_device(device)
     if background_scalar is None:
         background_scalar = float(np.max(video[0]))
 
-    read_packed, read_band, count_fn, storage_depth = video.staging_paths()
-    if chunk_size is None:
-        chunk_size = 4096 if read_band is not None else 256
+    need_intensity = detection_method != "combined" and use_frame_diff
+    need_raw = detection_method != "combined" and not use_frame_diff
     t0 = time.perf_counter()
-    profiles = compute_profiles_batched(
-        read_batch=video.read_batch,
-        n_frames=len(video),
-        frame_shape=video.frame_shape,
-        background_scalar=background_scalar,
-        config=config,
-        skip_frames=skip_frames,
-        chunk_size=chunk_size,
-        read_packed=read_packed,
-        read_band=read_band,
-        count_fn=count_fn,
-        read_band_counts=(
-            video.band_bytes_and_counts if read_band is not None else None
-        ),
-        band_bit_depth=storage_depth,
-        keep_device=scan == "device",
-        need_intensity=detection_method != "combined" and use_frame_diff,
-        need_raw=detection_method != "combined" and not use_frame_diff,
-        progress=progress,
-        stage_times=stage_times,
-        device=dev,
-    )
+    if mesh is not None:
+        sharded_kwargs = {}
+        if chunk_size is not None:
+            sharded_kwargs["frames_per_shard"] = max(1, chunk_size // mesh.shape["frame"])
+        profiles = _compute_profiles_sharded(
+            video, background_scalar, config, skip_frames, mesh,
+            keep_device=scan == "device", need_intensity=need_intensity,
+            need_raw=need_raw, progress=progress, stage_times=stage_times,
+            **sharded_kwargs,
+        )
+    else:
+        read_packed, read_band, count_fn, storage_depth = video.staging_paths()
+        if chunk_size is None:
+            chunk_size = 4096 if read_band is not None else 256
+        profiles = compute_profiles_batched(
+            read_batch=video.read_batch,
+            n_frames=len(video),
+            frame_shape=video.frame_shape,
+            background_scalar=background_scalar,
+            config=config,
+            skip_frames=skip_frames,
+            chunk_size=chunk_size,
+            read_packed=read_packed,
+            read_band=read_band,
+            count_fn=count_fn,
+            read_band_counts=(
+                video.band_bytes_and_counts if read_band is not None else None
+            ),
+            band_bit_depth=storage_depth,
+            keep_device=scan == "device",
+            need_intensity=need_intensity,
+            need_raw=need_raw,
+            progress=progress,
+            stage_times=stage_times,
+            device=dev,
+        )
     t_map = time.perf_counter() - t0
     time_fn = video.get_absolute_time if use_absolute_time else video.get_time
     t0 = time.perf_counter()

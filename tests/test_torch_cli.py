@@ -6,7 +6,8 @@ platform) over tiny recordings made from a seed by the port's own writer.
 The tables they write must be byte-identical (tolerance: none), ``--info``
 must print the same characters, ``load_config`` must give equal
 dataclasses, and the port's own rules (the device is named or the run
-refuses, ``--mesh`` refuses, a device fault ends the run) are held.
+refuses, ``--mesh`` never runs with fewer slots than asked, a device fault
+ends the run) are held. ``--library --mesh`` runs on CPU slots.
 """
 
 import dataclasses
@@ -325,13 +326,19 @@ def test_no_sources_exits_2(capsys):
     (["--mesh"], "--mesh requires --library"),
     (["--library", "--mesh", "-1"], "must be positive"),
     (["--library", "--backend", "exact"], "incompatible with --library"),
-    (["--library", "--mesh"], "not ported yet"),
-    (["--library", "--mesh", "2"], "not ported yet"),
+    (["--library", "--mesh", "64", "--device", "cuda"],
+     "--mesh 64: only 1 local device(s) available"),
+    (["--library", "--mesh", "2", "--device", "cuda"],
+     "--mesh 2: only 1 local device(s) available"),
     (["--device", "definitely_not_a_device"], "definitely_not_a_device"),
 ], ids=["coordinator", "num-processes", "process-id", "mesh-alone",
         "mesh-negative", "library-backend", "mesh-all", "mesh-2", "bad-device"])
 def test_argument_checks_exit_2_and_write_nothing(one_video, tmp_path, capsys,
-                                                  flags, text):
+                                                  monkeypatch, flags, text):
+    """On a machine with one card: a mesh of more cards than that exits 2,
+    it never runs with fewer slots or unsharded."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     out = tmp_path / "o"
     argv = ["--video-path", str(one_video), "--output-dir", str(out),
             "--quiet", *TABLES_ONLY, *flags]
@@ -353,6 +360,50 @@ def test_shared_argument_checks_read_as_in_the_jax_cli(one_video, tmp_path, caps
         want = capsys.readouterr().err
         assert port_cli.main(argv) == 2
         assert capsys.readouterr().err == want
+
+
+@pytest.mark.parametrize("mesh", [["--mesh"], ["--mesh", "4"]],
+                         ids=["mesh-all", "mesh-4"])
+def test_library_mesh_writes_the_jax_tables(videos, tmp_path, capsys, mesh):
+    """``--library --mesh [N]`` on CPU slots (one when N is omitted) writes
+    the tables of ``hsip --library --mesh`` and of plain ``--library``."""
+    assert _jax(videos, tmp_path / "jax", "--library", *mesh, *TABLES_ONLY) == 0
+    capsys.readouterr()
+    assert port_cli.main(["--video-path", str(videos), "--output-dir",
+                          str(tmp_path / "port"), "--calibration", "0.000833333",
+                          *CPU, "--library", *mesh, *TABLES_ONLY]) == 0
+    slots = int(mesh[1]) if len(mesh) > 1 else 1
+    assert f"Sharding video axis over {slots} devices" in capsys.readouterr().out
+    assert _port(videos, tmp_path / "plain", "--library", *TABLES_ONLY) == 0
+    want = _tables(tmp_path / "jax")
+    assert len(want) >= 3
+    assert _tables(tmp_path / "port") == want == _tables(tmp_path / "plain")
+
+
+def test_mesh_takes_the_ranks_own_cards(monkeypatch):
+    """Which slots ``--mesh`` may take: every local card; under
+    ``--distributed`` disjoint cards a rank when there are enough, else the
+    rank's own card, shared; a card named by index alone; N CPU slots."""
+    class Rank1Of2:
+        rank, size = 1, 2
+
+    def cuda(*idx):
+        return [torch.device("cuda", i) for i in idx]
+
+    for key in ("LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    slots = port_cli._mesh_devices
+    assert slots(0, torch.device("cuda"), None, None) == cuda(0, 1, 2, 3)
+    assert slots(0, torch.device("cuda", 1), None, Rank1Of2()) == cuda(2, 3)
+    assert slots(0, torch.device("cuda", 2), "cuda:2", None) == cuda(2)
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    assert slots(0, torch.device("cuda", 0), None, Rank1Of2()) == cuda(0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert slots(0, torch.device("cuda", 0), None, Rank1Of2()) == cuda(0)
+    assert slots(3, torch.device("cpu"), "cpu", None) == [torch.device("cpu")] * 3
+    assert slots(0, torch.device("cpu"), "cpu", None) == [torch.device("cpu")]
 
 
 @pytest.mark.parametrize("flags", [[], ["--library"], ["--device", "cuda"],

@@ -322,13 +322,14 @@ def test_golden_table_on_the_card(tmp_path, backend):
     assert (cuda_tracking_scan.launches > scans) == (backend == "device")
 
 
-def _library_outputs(directory, device, sc=None):
+def _library_outputs(directory, device, sc=None, mesh=None):
     import hsip_tpu_torch
     from hsip_tpu_torch.track import batch
 
     with hsip_tpu_torch.open_collection(str(directory)) as coll:
         outs = batch.track_collection_device(coll, FlameDetectorConfig(),
-                                             source_config=sc, device=device)
+                                             source_config=sc, device=device,
+                                             mesh=mesh)
     return outs, list(batch.LAST_GROUP_PATHS)
 
 
@@ -422,3 +423,58 @@ def test_map_phase_staging_reuses_the_pinned_pool(tmp_path):
         assert got.merged_rows() == want
     pooled = [e for e in fused._STAGING_POOL if e[1].is_pinned()]
     assert pooled and len(fused._STAGING_POOL) <= fused._STAGING_POOL_MAX
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_on", ["1", "0"])
+@pytest.mark.parametrize("slots", [2, 3])
+def test_library_over_a_mesh_on_the_card_equals_the_cpu_run(tmp_path, monkeypatch,
+                                                            slots, fused_on):
+    """Every slot on the card: each slot's group programs launch both
+    kernels (fused), or each slot scans its own videos (chunked); the
+    outputs are the CPU run's."""
+    from hsip_tpu_torch.parallel import make_mesh
+    from hsip_tpu_torch.track import fused
+
+    dev = _cuda()
+    _write_library(tmp_path / "v")
+    want, _ = _library_outputs(tmp_path / "v", "cpu")
+    monkeypatch.setenv("HSIP_FUSED", fused_on)
+    scans = cuda_tracking_scan.launches
+    got, paths = _library_outputs(tmp_path / "v", None,
+                                  mesh=make_mesh("video", devices=[dev] * slots))
+    assert paths == ["fused" if fused_on == "1" else "chunked"]
+    for g, w in zip(got, want):
+        assert g.merged_rows() == w.merged_rows()
+        assert (g.break_reason, g.empty_frame_count) == (w.break_reason, w.empty_frame_count)
+    if fused_on == "1":
+        for slot in range(slots):
+            launched = [t["launches"] for t in fused._LAST_PIPELINE_TRACE
+                        if t["slot"] == slot]
+            assert launched and all(band >= 1 and scan >= 1 for band, scan in launched)
+    else:
+        assert cuda_tracking_scan.launches - scans == slots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan", ["host", "device"])
+@pytest.mark.parametrize("slots", [2, 4])
+def test_track_video_over_a_frame_mesh_on_the_card(tmp_path, slots, scan):
+    """The frame-sharded map phase with every slot on the card: three
+    chunks of 32 frames, one band kernel launch a slot a chunk, the rows of
+    the CPU run."""
+    import hsip_tpu_torch
+    from hsip_tpu_torch.parallel import make_mesh
+    from hsip_tpu_torch.track.scan import track_video
+
+    dev = _cuda()
+    _write_library(tmp_path / "v")
+    cfg = FlameDetectorConfig()
+    with hsip_tpu_torch.open_video(str(tmp_path / "v" / "nova-run-1-001.cihx")) as video:
+        want = track_video(video, cfg, 0.001, scan=scan, device="cpu")
+        band0 = cuda_band_profiles.launches
+        got = track_video(video, cfg, 0.001, scan=scan, chunk_size=32,
+                          mesh=make_mesh("frame", devices=[dev] * slots))
+    assert cuda_band_profiles.launches - band0 == 3 * slots
+    assert [r[:4] for r in got.rows] == [r[:4] for r in want.rows]
+    assert len(want.rows) > 10

@@ -9,11 +9,12 @@ asserts them for the JAX package, and the CLI over three tiny recordings —
 each rank writes a disjoint subset, and the union is byte-identical to the
 single-process run (tolerance: none), per file and with ``--library``.
 
-Four processes are started in all (two tests, two ranks each): the
+Six processes are started in all (three tests, two ranks each): the
 collectives' workers also drive the ``--library`` route through
 ``hsip_tpu_torch.cli.main`` on the group they formed, and the per-file route
-runs as ``python -m hsip_tpu_torch.cli``. Every wait is bounded and every
-rank left over is killed.
+runs as ``python -m hsip_tpu_torch.cli``, as does ``--library --mesh 2``
+(each rank's two slots on the CPU). Every wait is bounded and every rank
+left over is killed.
 """
 
 import json
@@ -328,5 +329,30 @@ def test_two_rank_cli_per_file(tmp_path, capsys):
     assert mine == [_ALL[0], _ALL[2]] and theirs == [_ALL[1]]
     assert outs[0][1].count("Loading:") == 2 and "Loading:" not in outs[1][1]
     want = _single_process_tables(videos, tmp_path / "single")
+    assert len(want) >= 3 and _tables(out) == want
+    capsys.readouterr()
+
+
+def test_two_rank_cli_library_mesh(tmp_path, capsys):
+    """``--distributed --library --mesh 2``: each rank shards its own
+    recordings over its own two CPU slots; the union of the ranks' tables
+    is byte-identical to the single-process library run."""
+    videos = _tiny_collection_dir(tmp_path / "v")
+    out = tmp_path / "out"
+    coord = f"127.0.0.1:{_free_port()}"
+    outs = _run_ranks([
+        [sys.executable, "-m", "hsip_tpu_torch.cli", "--video-path", str(videos),
+         "--output-dir", str(out), "--calibration", "0.000833333",
+         "--no-images", "--no-sequences", "--library", "--mesh", "2",
+         "--distributed", "--coordinator", coord, "--num-processes", "2",
+         "--process-id", str(i), "--device", "cpu"]
+        for i in range(2)])
+    for i, (rc, stdout, err) in enumerate(outs):
+        assert rc == 0, f"rank {i} failed:\n{stdout}\n{err[-3000:]}"
+    assert "Sharding video axis over 2 devices per process" in outs[0][1]
+    assert outs[0][1].count("Processing complete!") == 1
+    mine, theirs = _rank_files(out)
+    assert mine == [_ALL[0], _ALL[2]] and theirs == [_ALL[1]]
+    want = _single_process_tables(videos, tmp_path / "single", "--library")
     assert len(want) >= 3 and _tables(out) == want
     capsys.readouterr()

@@ -422,15 +422,26 @@ def test_small_group_budget_splits_into_sub_batches(tmp_path):
 
 
 def test_mesh_is_not_ported(tmp_path):
+    """A mesh library run (two CPU slots) equals the unsharded one, through
+    the tracker and through the source runner, tables included."""
+    from hsip_tpu_torch.parallel import make_mesh
+
     d = tmp_path / "v"
     _write(d, "nova-run-1-001")
-    with pytest.raises(NotImplementedError):
-        _port_library(d, mesh=object())
+    _write(d, "nova-run-2-001", n_frames=30, seed=4)
+    _write(d, "nova-run-3-001", n_frames=35, seed=5)
+    mesh = make_mesh("video", devices=["cpu", "cpu"])
+    _assert_same(_port_library(d, mesh=mesh), _port_library(d))
     sc = _source(VideoSourceConfig)
     sc.video_path = str(d)
-    with pytest.raises(NotImplementedError):
-        port_pipeline.process_video_source_library(sc, mesh=object(),
-                                                   device="cpu")
+    tables = {}
+    for tag, kw in (("mesh", dict(mesh=mesh)), ("single", dict(device="cpu"))):
+        sc.output_dir = str(tmp_path / tag)
+        outs = port_pipeline.process_video_source_library(sc, verbose=False, **kw)
+        assert len(outs) == 3 and port_batch.LAST_GROUP_PATHS == ["fused"]
+        tables[tag] = {p.name: p.read_bytes()
+                       for p in sorted((tmp_path / tag).glob("*.txt"))}
+    assert len(tables["mesh"]) >= 3 and tables["mesh"] == tables["single"]
 
 
 def test_default_device_needs_cuda(tmp_path, monkeypatch):

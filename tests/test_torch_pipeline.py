@@ -197,7 +197,8 @@ assert len(process_video_source(cfg, backend="device", verbose=False,
 # The command line, per file and in library mode, over the same directory.
 from hsip_tpu_torch.cli import main
 
-for tag, flags in (("cli", []), ("cli-library", ["--library"])):
+for tag, flags in (("cli", []), ("cli-library", ["--library"]),
+                   ("cli-mesh", ["--library", "--mesh", "2"])):
     rc = main(["--video-path", cfg.video_path, "--output-dir",
                sys.argv[2] + "/" + tag, "--calibration", "0.000833333",
                "--position-offset", "1.0159", "--no-images", "--no-sequences",
@@ -224,7 +225,8 @@ print("ok")
 def test_port_runs_without_jax(tmp_path):
     """With jax and hsip_tpu unimportable, the port's CPU run of every
     backend, of library mode (fused and chunked), of the per-file source
-    runner and of the command line (per file and ``--library``) writes the
+    runner and of the command line (per file, ``--library`` and ``--library
+    --mesh 2`` on CPU slots) writes the
     golden table byte for byte, and both examples run to their end."""
     meta, _ = _golden_recording(tmp_path)
     proc = subprocess.run(
@@ -234,7 +236,7 @@ def test_port_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
     for backend in ("gpu", "device", "exact", "library", "chunked", "source",
-                    "cli", "cli-library"):
+                    "cli", "cli-library", "cli-mesh"):
         produced = tmp_path / "out" / backend / GOLDEN.name
         assert produced.read_bytes() == GOLDEN.read_bytes(), backend
     demo = tmp_path / "out" / "demo_torch" / "Processed"
@@ -293,6 +295,8 @@ def test_port_sources_never_import_jax():
             "hsip_tpu_torch/utils/summary.py", "chip_smoke.py",
             "hsip_tpu_torch/cli.py", "hsip_tpu_torch/parallel/__init__.py",
             "hsip_tpu_torch/parallel/processor.py",
+            "hsip_tpu_torch/parallel/mesh.py", "hsip_tpu_torch/parallel/sharding.py",
+            "hsip_tpu_torch/parallel/dryrun.py",
             "examples/demo_torch.py", "examples/library_torch.py"} <= scanned
 
 

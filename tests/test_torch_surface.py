@@ -77,9 +77,15 @@ def test_processor_has_the_collective_and_map_methods():
     assert callable(initialize_distributed)
     import hsip_tpu_torch.parallel as par
 
-    # The device-mesh layer comes with --mesh.
-    assert sorted(par.__all__) == ["VideoProcessor", "initialize_distributed"]
-    assert not hasattr(par, "make_mesh")
+    # The names of hsip_tpu.parallel, VideoProcessor for TPUVideoProcessor.
+    assert sorted(par.__all__) == [
+        "VideoProcessor", "frame_sharding", "initialize_distributed",
+        "make_mesh", "make_sharded_profile_fn", "sharded_centerline_profiles",
+        "video_frame_mesh"]
+    for name in par.__all__:
+        assert callable(getattr(par, name)), name
+    from hsip_tpu_torch.parallel.dryrun import (  # noqa: F401
+        build_multichip_step, run_multichip_dryrun, run_pipeline_dryrun)
 
 
 def test_cli_entry_points():
