@@ -80,7 +80,19 @@ Phases, each fatal when it fails:
    printed with its profiles within the tolerance). Then times, medians of
    3 warm runs in turns: library without a mesh, with the one-card mesh and
    with the 2-slot mesh; ``track_video`` unsharded and over a 2-slot frame
-   mesh.
+   mesh;
+10. the benchmark and the stage tools, each in its own process with a time
+   limit: ``bench_torch.py --repeat 4 --videos16 0`` must exit 0 with its
+   JSON line (under 2000 characters, the headline keys last) naming this
+   card, positive ``value``, ``device_compute_fps`` and ``vs_baseline``,
+   every library group ``"fused"``, and the kernels launched exactly as
+   each route launches them, (band, scan): the per-file loop (8, 8), the
+   library (4, 4), device compute (1, 1); ``tools/stage_profile_torch.py
+   --repeat 2 --trace`` ((1, 1) per file, (4, 4) over the library; the
+   profiled run's idle share and top kernels printed) and
+   ``tools/pipeline_trace_torch.py --groups 1 4 --trace`` over the same
+   library shape, 8 x 2048 frames of 128x1024 (rows identical across G,
+   G launches of each kernel, the timeline, idle share and top kernels).
 
 It prints, before the last line, a JSON object with one entry per kernel,
 and as the last line ``{"ok": true, "device": {...}}``. It exits non-zero,
@@ -1178,6 +1190,117 @@ def mesh_phase(tmp, meta, lib8, want8, dev_tables, card, config, rng):
                 library=lib_launches["2-slot"], cli=cli_launches), med
 
 
+def run_script(argv, timeout_s):
+    """``python3 argv`` from the checkout's root, with a time limit (the
+    child is killed when it runs past it); (stdout, seconds). Fails unless
+    it exits 0."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(x for x in (str(REPO), env.get("PYTHONPATH")) if x)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *map(str, argv)], capture_output=True,
+                          text=True, timeout=timeout_s, cwd=str(REPO), env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"{argv[0]} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def check_device(report, kind, what):
+    device = report.get("device") or {}
+    if device.get("platform") != "gpu" or device.get("kind") != kind:
+        raise AssertionError(f"{what} ran on {device}, not the {kind}")
+
+
+def log_trace(card, what, trace):
+    """One line for a profiled run: busy, idle share, the top kernels."""
+    top = "; ".join(f"{k['name'][:60]} {k['ms']:.3f} ms x{k['launches']}"
+                    for k in trace["top_kernels"])
+    log(f"[{card}] {what} under torch.profiler: wall {trace['wall_s']:.4f} s, device busy "
+        f"{trace['device_busy_s']:.4f} s ({trace['device_events']} events), idle share "
+        f"{trace['idle_share']:.4f}; top kernels: {top}")
+
+
+def bench_phase(tmp, meta, card, kind):
+    """Phase 10: ``bench_torch.py`` and the two stage tools on the card, each
+    in its own process. Returns the bench's launches per route and kernel."""
+    t_phase = time.perf_counter()
+    samples = tmp / "bench-samples.json"
+    out, secs = run_script(["bench_torch.py", "--repeat", "4", "--videos16", "0",
+                            "--samples-out", samples], timeout_s=300)
+    line = out.strip().splitlines()[-1]
+    bench = json.loads(line)
+    check_device(bench, kind, "bench_torch.py")
+    if list(bench)[-5:] != ["metric", "value", "unit", "vs_baseline", "device"]:
+        raise AssertionError(f"bench_torch.py's headline keys are not last: {list(bench)}")
+    if len(line) >= 2000 or "error" in bench:
+        raise AssertionError(f"bench_torch.py line of {len(line)} chars: {line[:300]}")
+    for key in ("value", "device_compute_fps", "vs_baseline"):
+        if not bench.get(key, 0) > 0:
+            raise AssertionError(f"bench_torch.py {key} = {bench.get(key)}")
+    launches = bench["launches"]
+    # One launch of each kernel a recording on the per-file loop, one a
+    # group of the library (G = 4 over 8 videos), one in device compute.
+    want = {"per_file": [8, 8], "library": [4, 4], "device_compute": [1, 1]}
+    if launches != want or bench["library_group_paths"] != ["fused"]:
+        raise AssertionError(f"bench_torch.py launched (band, scan) {launches}, not {want}, "
+                             f"groups {bench['library_group_paths']}")
+    detail = json.loads(samples.read_text())
+    log(f"[{card}] bench_torch.py --repeat 4 --videos16 0 ({secs:.1f} s in its process, "
+        f"kernels built in {bench['build_s']} s): library {bench['value']} frames/s, per-file "
+        f"loop {bench['single_video_fps']} frames/s, pairwise median "
+        f"{bench['library_speedup_pairwise_median']} (IQR "
+        f"{bench.get('library_speedup_pairs_iqr')}), device compute "
+        f"{bench['device_compute_fps']} frames/s {bench['device_compute_ms']} ms, host "
+        f"staging {bench.get('host_staging_fps')} frames/s, host baseline "
+        f"{bench['scipy_serial_fps']} frames/s (vs_baseline {bench['vs_baseline']}), "
+        f"groups {bench['library_group_paths']}, launches (band, scan) {launches}, "
+        f"power limit {bench['device']['power_limit_w']} W; samples {detail['samples']}")
+    log(f"bench_torch.py line ({len(line)} chars): {line}")
+
+    # bench.py's recording is the one of phase 5, byte for byte: link it
+    # into the tool's cache instead of synthesizing it again.
+    cache = tmp / "stage-cache"
+    link_recording(meta, cache / f"f{N_FRAMES}-h{HEIGHT}-w{WIDTH}", "bench-run-1-001")
+    out, secs = run_script(["tools/stage_profile_torch.py", "--repeat", "2", "--trace",
+                            "--cache-dir", cache], timeout_s=240)
+    report = json.loads(out)
+    check_device(report, kind, "stage_profile_torch.py")
+    for mode, want_launches in (("single", [1, 1]), ("library", [4, 4])):
+        r = report[mode]
+        if r["launches"] != want_launches or not 0.0 <= r["trace"]["idle_share"] < 1.0:
+            raise AssertionError(f"stage_profile_torch.py {mode}: launches {r['launches']}, "
+                                 f"idle share {r['trace']['idle_share']}")
+        log(f"[{card}] stage_profile_torch.py {mode} ({secs:.1f} s in its process): "
+            f"{r['fps']:.1f} frames/s, best of 2 {r['end_to_end_s']:.4f} s, launches "
+            f"{r['launches']}, StageTimes {r['stages']}")
+        log_trace(card, f"stage_profile_torch.py {mode}", r["trace"])
+
+    # The fused groups' timeline over the library's own shape.
+    out, secs = run_script(["tools/pipeline_trace_torch.py", "--groups", "1", "4", "--trace",
+                            "--videos", "8", "--frames", N_FRAMES, "--height", HEIGHT,
+                            "--width", WIDTH], timeout_s=240)
+    summary = json.loads(out.strip().splitlines()[-1])
+    check_device(summary, kind, "pipeline_trace_torch.py")
+    if not summary.get("rows_identical"):
+        raise AssertionError("pipeline_trace_torch.py: rows differ across G")
+    if sorted(summary["per_group"]) != ["1", "4"]:
+        raise AssertionError(f"pipeline_trace_torch.py swept G={sorted(summary['per_group'])}")
+    for g, entry in summary["per_group"].items():
+        if entry["launches"] != [int(g), int(g)] or entry["groups"] != int(g):
+            raise AssertionError(f"pipeline_trace_torch.py G={g}: {entry['groups']} groups, "
+                                 f"launches {entry['launches']}")
+        log(f"[{card}] pipeline_trace_torch.py G={g} ({secs:.1f} s in its process; "
+            f"videos x frames x height x width {summary['shape']}): "
+            f"{entry['end_to_end_s']:.4f} s, gather {entry['gather_wall_s']:.4f} s, overlap "
+            f"{entry['overlap_s']:.4f} s, tail {entry['tail_s']:.4f} s, launches "
+            f"{entry['launches']}")
+        log_trace(card, f"pipeline_trace_torch.py G={g}", entry["trace"])
+    log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return {k: {route: launches[route][k] for route in launches} for k in (0, 1)}
+
+
 def main() -> int:
     if not (REPO / "hsip_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from the root of a checkout (hsip_tpu_torch/ "
@@ -1457,6 +1580,9 @@ def main() -> int:
         mesh_launches, mesh_times = mesh_phase(tmp, meta, lib8, want8, dev_tables, card,
                                                config, rng)
 
+        # ---- phase 10: the benchmark and the stage tools ----
+        bench_launches = bench_phase(tmp, meta, card, kind)
+
     log(json.dumps({"library": {
         "frames": 8 * N_FRAMES, "loop_s": lib_times["loop_s"], "library_s": lib_times["lib_s"],
         "peak_device_bytes": lib_times["peak"], "budget_estimate_bytes": lib_times["estimate"],
@@ -1486,6 +1612,7 @@ def main() -> int:
          "launches_cli": cli_file[0], "launches_cli_library": cli_lib[0],
          "launches_mesh": mesh_launches["track_video"][0],
          "launches_mesh_library": mesh_launches["library"][0],
+         "launches_bench": bench_launches[0],
          "max_abs_err": band_err,
          "ms": band_ms, "plain_ms": band_plain_ms,
          "bound_ms": band_bound_ms, "bound_by": band_bound_by,
@@ -1499,6 +1626,7 @@ def main() -> int:
          "videos_cli_library": cli_lib[2],
          "launches_mesh": mesh_launches["track_video"][1],
          "launches_mesh_library": mesh_launches["library"][1],
+         "launches_bench": bench_launches[1],
          "max_abs_err": scan_err,
          "ms": scan_ms, "plain_ms": scan_plain_ms,
          "bound_ms": scan_bound_ms, "bound_by": scan_bound_by,

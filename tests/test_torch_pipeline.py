@@ -7,6 +7,7 @@ write tables byte-identical to ``tests/golden/`` and to
 against 'device').
 """
 
+import json
 import shutil
 import subprocess
 import sys
@@ -215,6 +216,22 @@ for script, argv in (("demo_torch.py", ["--no-images", "--no-sequences", "--quie
         runpy.run_path(os.path.join("examples", script), run_name="__main__")
     except SystemExit as exit_:
         assert exit_.code == 0, (script, exit_.code)
+# The benchmark and the two stage tools, as scripts, at a tiny size, on
+# the fused library path (HSIP_FUSED=0 above chose the chunked one).
+os.environ.pop("HSIP_FUSED")
+tiny = ["--device", "cpu", "--frames", "16", "--height", "64", "--width", "256",
+        "--videos", "2"]
+for script, argv in (
+        ("bench_torch.py", ["--repeat", "1", "--baseline-sample", "4", "--videos16", "0",
+                            "--samples-out", out_root + "/bench-samples.json"]),
+        ("tools/stage_profile_torch.py", ["--repeat", "1",
+                                          "--cache-dir", out_root + "/stage-cache"]),
+        ("tools/pipeline_trace_torch.py", ["--groups", "1", "2", "--repeats", "1"])):
+    sys.argv[:] = [script, *tiny, *argv]
+    try:
+        runpy.run_path(script, run_name="__main__")
+    except SystemExit as exit_:
+        assert exit_.code == 0, (script, exit_.code)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "hsip_tpu"))
 assert loaded == [], loaded
@@ -227,7 +244,8 @@ def test_port_runs_without_jax(tmp_path):
     backend, of library mode (fused and chunked), of the per-file source
     runner and of the command line (per file, ``--library`` and ``--library
     --mesh 2`` on CPU slots) writes the
-    golden table byte for byte, and both examples run to their end."""
+    golden table byte for byte, and both examples, bench_torch.py and the
+    two stage tools run to their end."""
     meta, _ = _golden_recording(tmp_path)
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, str(meta), str(tmp_path / "out")],
@@ -239,6 +257,9 @@ def test_port_runs_without_jax(tmp_path):
                     "cli", "cli-library", "cli-mesh"):
         produced = tmp_path / "out" / backend / GOLDEN.name
         assert produced.read_bytes() == GOLDEN.read_bytes(), backend
+    bench = json.loads((tmp_path / "out" / "bench-samples.json").read_text())
+    assert bench["value"] > 0 and bench["device"]["platform"] == "cpu"
+    assert "rows identical across G=[1, 2]" in proc.stdout
     demo = tmp_path / "out" / "demo_torch" / "Processed"
     assert len(list(demo.glob("*/*-flame-position.txt"))) == 4
     assert len(list((tmp_path / "out" / "library_torch" / "videos")
@@ -266,7 +287,8 @@ def test_examples_run_on_the_cpu(tmp_path, script, flags, expect):
 def _port_files():
     return (sorted((REPO / "hsip_tpu_torch").rglob("*.py"))
             + sorted((REPO / "examples").glob("*_torch.py"))
-            + [REPO / "chip_smoke.py"])
+            + sorted((REPO / "tools").glob("*_torch.py"))
+            + [REPO / "chip_smoke.py", REPO / "bench_torch.py"])
 
 
 def _imported_roots(path):
@@ -284,7 +306,8 @@ def _imported_roots(path):
 
 
 def test_port_sources_never_import_jax():
-    """No module of the port (nor chip_smoke.py) imports jax, at any depth
+    """No module of the port (nor chip_smoke.py, bench_torch.py or the
+    tools' ``*_torch.py``) imports jax, at any depth
     of the file (AST scan, so lazy imports inside functions count too)."""
     offenders = [str(f) for f in _port_files() if "jax" in _imported_roots(f)]
     assert not offenders
@@ -297,11 +320,14 @@ def test_port_sources_never_import_jax():
             "hsip_tpu_torch/parallel/processor.py",
             "hsip_tpu_torch/parallel/mesh.py", "hsip_tpu_torch/parallel/sharding.py",
             "hsip_tpu_torch/parallel/dryrun.py",
-            "examples/demo_torch.py", "examples/library_torch.py"} <= scanned
+            "examples/demo_torch.py", "examples/library_torch.py",
+            "bench_torch.py", "tools/stage_profile_torch.py",
+            "tools/pipeline_trace_torch.py"} <= scanned
 
 
 def test_port_sources_never_import_the_jax_package():
-    """No module of the port (nor chip_smoke.py) imports hsip_tpu or any
+    """No module of the port (nor chip_smoke.py, bench_torch.py or the
+    tools' ``*_torch.py``) imports hsip_tpu or any
     hsip_tpu.* module; hsip_tpu_torch is its own root."""
     offenders = [str(f) for f in _port_files() if "hsip_tpu" in _imported_roots(f)]
     assert not offenders
