@@ -92,7 +92,32 @@ Phases, each fatal when it fails:
    profiled run's idle share and top kernels printed) and
    ``tools/pipeline_trace_torch.py --groups 1 4 --trace`` over the same
    library shape, 8 x 2048 frames of 128x1024 (rows identical across G,
-   G launches of each kernel, the timeline, idle share and top kernels).
+   G launches of each kernel, the timeline, idle share and top kernels);
+11. the randomized sweeps of tests/test_fuzz.py on the card, each case
+   drawn as that file draws it (``fuzz_*_case`` below; the CPU suite's
+   tests/test_torch_fuzz.py holds the draws to the JAX file's): (a) 24
+   configs through ``process_video_file``, 'gpu' and 'device' on the card
+   against 'exact' and 'gpu' on the CPU (rows, break reason, empty
+   frames, tables), the map phase's line sets of the card against the
+   CPU's within ``TOL`` (bit-equality printed), the staging routes and bit
+   depths counted (every one of 'band+counts', 'packed', 'host_exact' and
+   8/10/12/16 bits must occur), the band kernel launched on every device
+   route and the scan kernel once a 'device' run; (b) three random
+   libraries (mixed shapes, lengths, 12/16 bits): library mode's tables
+   equal to the per-file 'device' run's, group paths and launches exactly
+   as the groups give them; (c) the scan kernel against its plain version
+   at the random configs (2 seeds x 4 detectors) and the four adversarial
+   value classes x 4 detectors, widths on both of its copy routes; (d)
+   ``hsip-torch --video-path D --output-dir O``, the default route
+   (figures on, backend 'gpu'), on the card against ``--device cpu``:
+   every table and PNG byte-equal, the band kernel and no scan launched;
+   ``--library`` with figures (tables equal to the per-file 'device' run,
+   PNGs to the per-file figure run, one scan launch a group); the route's
+   wall beside ``--no-images --no-sequences`` on a 512-frame 128x1024
+   recording (medians of 3 in turns), its PNG count and render share.
+   Figures need matplotlib; on a machine without it the default route
+   must exit 2 before opening a file, and (d) runs the route's backend
+   with the figures off.
 
 It prints, before the last line, a JSON object with one entry per kernel,
 and as the last line ``{"ok": true, "device": {...}}``. It exits non-zero,
@@ -1301,6 +1326,627 @@ def bench_phase(tmp, meta, card, kind):
     return {k: {route: launches[route][k] for route in launches} for k in (0, 1)}
 
 
+# ---- the sweeps of tests/test_fuzz.py. Each draw is the JAX file's own,
+# from its seeds and in its order, into plain values that either package
+# builds its configs and recordings from (``io``: ``hsip_tpu_torch.io``
+# here, ``hsip_tpu.io`` in tests/test_torch_fuzz.py).
+
+FUZZ_METHODS = ("combined", "threshold", "half_maximum", "gradient")
+
+
+def fuzz_pipeline_case(seed):
+    """The draw of ``test_random_config_backend_parity``
+    (tests/test_fuzz.py:39), seed ``1000 + seed``: detector and source
+    settings, the recording's geometry, bit depth, metadata format and
+    flame."""
+    import numpy as np
+
+    rng = np.random.default_rng(1000 + seed)
+    det = dict(
+        frame_diff_threshold=float(rng.uniform(1, 12)),
+        morphology_kernel_size=int(rng.choice([2, 3, 4, 5])),
+        gaussian_sigma=float(rng.uniform(0.8, 2.5)),
+        min_gradient_strength=float(rng.uniform(3, 20)),
+        sobel_threshold_fraction=float(rng.uniform(0.05, 0.3)),
+        max_velocity_change_m_s=float(rng.uniform(80, 400)),
+        search_window_px=int(rng.integers(40, 160)),
+        edge_margin_px=int(rng.integers(3, 20)),
+        exit_margin_px=int(rng.integers(8, 25)),
+    )
+    height = int(rng.choice([16, 32, 48, 96]))
+    width = int(rng.choice([255, 256, 330, 384, 500, 512]))
+    depth = int(rng.choice([8, 10, 12, 16]))
+    if depth == 10 and width % 4:
+        width += 4 - width % 4  # 10-bit packing needs width % 4 == 0
+    method = str(rng.choice(["combined", "combined", "threshold", "gradient",
+                             "half_maximum"]))
+    use_frame_diff = bool(rng.random() < 0.7)
+    metadata_format = str(rng.choice(["cihx", "cih"]))
+    color_bit = 16 if (depth == 12 and rng.random() < 0.25) else None
+    skip = (sorted(rng.choice(np.arange(3, 20), size=3, replace=False).tolist())
+            if rng.random() < 0.3 else [])
+    flame = dict(
+        x0=float(rng.uniform(15, 60)),
+        v0_px=float(rng.uniform(2, 14)),
+        accel_px=float(rng.uniform(0, 0.5)),
+        ignition_frame=int(rng.integers(0, 6)),
+        ddt_frame=int(rng.integers(15, 35)) if rng.random() < 0.5 else None,
+        v_jump_px=float(rng.uniform(10, 40)),
+        flame_level={8: 220, 10: 900}.get(depth, 3000),
+        background_level={8: 8, 10: 20}.get(depth, 40),
+        seed=seed,
+    )
+    n_frames = int(rng.integers(25, 70))
+    record_rate = int(rng.choice([50_000, 100_000]))
+    source = dict(name="FUZZ", calibration=float(rng.uniform(4e-4, 1.5e-3)),
+                  detection_method=method, use_frame_diff=use_frame_diff,
+                  skip_frames=skip)
+    return dict(seed=seed, detector=det, source=source, height=height, width=width,
+                depth=depth, metadata_format=metadata_format, color_bit=color_bit,
+                flame=flame, n_frames=n_frames, record_rate=record_rate)
+
+
+def write_fuzz_recording(case, directory, io):
+    """``fuzz_pipeline_case``'s recording, written with ``io``."""
+    import numpy as np
+
+    frames, _ = io.synthesize_flame_video(case["n_frames"], height=case["height"],
+                                          width=case["width"],
+                                          flame=io.FlameSpec(**case["flame"]))
+    if case["depth"] in (8, 10):
+        frames = np.clip(frames, 0, 2 ** case["depth"] - 1)
+    spec = io.CihxSpec(width=case["width"], height=case["height"],
+                       total_frames=case["n_frames"], record_rate=case["record_rate"],
+                       bit_depth=case["depth"], color_bit=case["color_bit"])
+    return io.write_recording(Path(directory), f"fuzz-run-{case['seed']}-a", frames,
+                              spec=spec, metadata_format=case["metadata_format"])
+
+
+def fuzz_library_case(seed):
+    """The draw of ``test_random_library_matches_per_file``
+    (tests/test_fuzz.py:121), seed ``7000 + seed``: 2-4 recordings of one
+    or two shapes, lengths 20-59, 12 or 16 bits, each ``(stem, height,
+    width, depth, frames, flame)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(7000 + seed)
+    n_videos = int(rng.integers(2, 5))
+    shapes = [(int(rng.choice([32, 48, 64])), int(rng.choice([256, 384, 512])))
+              for _ in range(int(rng.integers(1, 3)))]
+    videos = []
+    for v in range(n_videos):
+        h, w = shapes[v % len(shapes)]
+        depth = int(rng.choice([12, 16]))
+        n = int(rng.integers(20, 60))
+        flame = dict(
+            x0=float(rng.uniform(15, 50)),
+            v0_px=float(rng.uniform(3, 10)),
+            ignition_frame=int(rng.integers(0, 5)),
+            ddt_frame=int(rng.integers(12, 25)) if rng.random() < 0.4 else None,
+            v_jump_px=25.0,
+            seed=900 + 10 * seed + v,
+        )
+        videos.append((f"fuzzlib-run-{v + 1}-001", h, w, depth, n, flame))
+    return videos
+
+
+def write_fuzz_library(videos, directory, io):
+    """``fuzz_library_case``'s recordings, written with ``io``."""
+    for stem, h, w, depth, n, flame in videos:
+        frames, _ = io.synthesize_flame_video(n, height=h, width=w,
+                                              flame=io.FlameSpec(**flame))
+        io.write_recording(Path(directory), stem, frames,
+                           spec=io.CihxSpec(width=w, height=h, total_frames=n,
+                                            record_rate=100_000, bit_depth=depth))
+
+
+def fuzz_scan_case(seed, method):
+    """The draw of ``test_random_pallas_scan_parity``
+    (tests/test_fuzz.py:180): the detector settings, a 32-row recording's
+    frames and the scan's own parameters. The caller computes the map
+    phase (``chunk_size=16``, background frame 0's max) and passes the
+    lines the method reads."""
+    import numpy as np
+
+    rng = np.random.default_rng(7000 + 131 * seed + sum(map(ord, method)))
+    det = dict(
+        frame_diff_threshold=float(rng.uniform(1, 12)),
+        gaussian_sigma=float(rng.uniform(0.8, 2.5)),
+        min_gradient_strength=float(rng.uniform(3, 20)),
+        sobel_threshold_fraction=float(rng.uniform(0.05, 0.3)),
+        search_window_px=int(rng.integers(40, 160)),
+        edge_margin_px=int(rng.integers(0, 20)),
+        exit_margin_px=int(rng.integers(8, 25)),
+    )
+    n = int(rng.integers(16, 48))
+    height, width = 32, int(rng.choice([250, 255, 256, 384, 500, 512]))
+    flame = dict(
+        x0=float(rng.uniform(10, 40)),
+        v0_px=float(rng.uniform(2, 12)),
+        accel_px=float(rng.uniform(0, 0.15)),
+        ignition_frame=int(rng.integers(0, 6)),
+        seed=int(rng.integers(0, 2**31)),
+    )
+    # The map phase draws nothing: the scan's parameters follow in order.
+    params = dict(
+        calibration=np.float32(rng.uniform(5e-4, 2e-3)),
+        frame_rate=np.float32(rng.choice([5e4, 1e5, 2e5])),
+        max_displacement_px=np.int32(rng.integers(1, 8)),
+    )
+    if method != "combined":
+        params.update(method=method, method_fraction=np.float32(rng.uniform(0.3, 0.7)))
+    return dict(detector=det, n=n, height=height, width=width, flame=flame,
+                params=params)
+
+
+def fuzz_scan_params(case, det_config):
+    """The scan keyword arguments of ``fuzz_scan_case`` (without the line
+    sets), from the detector config built of its ``detector``."""
+    import numpy as np
+
+    return dict(
+        width=case["width"],
+        min_gradient_strength=np.float32(det_config.min_gradient_strength),
+        sobel_threshold_fraction=np.float32(det_config.sobel_threshold_fraction),
+        ddt_velocity_jump=np.float32(det_config.ddt_velocity_jump_m_s),
+        edge_margin_px=det_config.edge_margin_px,
+        search_window_px=det_config.search_window_px,
+        exit_margin_px=det_config.exit_margin_px,
+        **case["params"],
+    )
+
+
+def adversarial_scan_cases(method):
+    """The four value classes of ``test_adversarial_pallas_scan_soak``
+    (tests/test_fuzz.py:253), W=250, M=25: noise, heavy ties, sparse
+    spikes, a flat plateau; edge margin 0, scattered frame indices,
+    ``frame_rate`` 0 or 1e5. Each ``(kind, fidx, sobel, gradient,
+    profile, empty, has_prior, scan kwargs)``; the named methods read
+    ``profile`` as their intensity lines."""
+    import numpy as np
+
+    rng = np.random.default_rng(777 + sum(map(ord, method)))
+    w, m = 250, 25
+    cases = []
+    for kind in range(4):
+        if kind == 0:
+            prof = np.abs(rng.normal(0, 50, (m, w))).astype(np.float32)
+        elif kind == 1:  # heavy ties
+            prof = (np.abs(rng.integers(-3, 4, (m, w))) * 10.0).astype(np.float32)
+        elif kind == 2:  # sparse spikes
+            prof = np.zeros((m, w), np.float32)
+            prof[:, rng.integers(0, w, 5)] = 100
+        else:  # flat plateau
+            prof = np.full((m, w), 50.0, np.float32)
+        sob = rng.normal(0, 30, (m, w)).astype(np.float32)
+        grad = rng.normal(0, 15, (m, w)).astype(np.float32)
+        empty = rng.random(m) < 0.2
+        prior = rng.random(m) < 0.9
+        fidx = np.sort(rng.choice(np.arange(m * 2), m, replace=False)).astype(np.int32)
+        kw = dict(
+            width=w,
+            min_gradient_strength=np.float32(rng.uniform(1, 30)),
+            sobel_threshold_fraction=np.float32(rng.uniform(0.05, 0.4)),
+            ddt_velocity_jump=np.float32(rng.uniform(100, 3000)),
+            calibration=np.float32(rng.uniform(1e-4, 5e-3)),
+            frame_rate=np.float32(rng.choice([0.0, 1e5])),
+            max_displacement_px=np.int32(rng.integers(1, 9)),
+            edge_margin_px=0, search_window_px=60, exit_margin_px=5,
+        )
+        if method != "combined":
+            kw.update(method=method, method_fraction=np.float32(rng.uniform(0.2, 1.2)))
+        cases.append((kind, fidx, sob, grad, prof, empty, prior, kw))
+    return cases
+
+
+# ---- phase 11: the sweeps on the card, then the default figure route ----
+
+SWEEP_CONFIGS = 24        # 11a: seeds 0-23 of fuzz_pipeline_case
+SWEEP_LIBRARY_SEEDS = 3   # 11b
+SWEEP_SCAN_SEEDS = 2      # 11c, each with all four detectors
+FIGURE_FRAMES = 512       # 11d's timed recording: bench's 2048 frames cut to 512
+TABLES_ONLY = ["--no-images", "--no-sequences"]
+ROUTES = ("band+counts", "packed", "host_exact")
+
+
+def check_launches(ok, what, got):
+    """Fail unless ``ok``: the launch counts (band, scan, scan videos)
+    ``got`` of ``what`` are not the ones its route gives."""
+    if not ok:
+        raise AssertionError(f"{what}: launches (band, scan, scan videos) {got}")
+
+
+def map_phase_lines(meta, config, skip, device):
+    """The map phase of ``track_video`` on ``device``: its staging, its
+    chunk size, the line sets back as numpy arrays."""
+    import numpy as np
+
+    from hsip_tpu_torch import open_video
+    from hsip_tpu_torch.track.scan import compute_profiles_batched
+
+    with open_video(str(meta)) as video:
+        read_packed, read_band, count_fn, depth = video.staging_paths()
+        return compute_profiles_batched(
+            video.read_batch, len(video), video.frame_shape, float(np.max(video[0])),
+            config, skip_frames=skip, chunk_size=4096 if read_band is not None else 256,
+            read_packed=read_packed, read_band=read_band, count_fn=count_fn,
+            read_band_counts=video.band_bytes_and_counts if read_band is not None else None,
+            band_bit_depth=depth, device=device)
+
+
+def pipeline_sweep(tmp, gpu):
+    """11a: every config through ``process_video_file``, 'gpu' and 'device'
+    on the card against 'exact' and 'gpu' on the CPU, and the map phase's
+    line sets of the card against the CPU's. Returns the card runs'
+    launches, summed, and what the sweep covered."""
+    import numpy as np
+    import torch
+
+    from hsip_tpu_torch import io
+    from hsip_tpu_torch.pipeline import process_video_file
+    from hsip_tpu_torch.track.config import FlameDetectorConfig, VideoSourceConfig
+
+    routes, depths = {}, {}
+    totals, worst, bit_equal = (0, 0, 0), 0.0, 0
+    lines = ("sobel_lines", "gradient_lines", "intensity_lines", "raw_center_lines")
+    for seed in range(SWEEP_CONFIGS):
+        case = fuzz_pipeline_case(seed)
+        meta = write_fuzz_recording(case, tmp / f"rec-{seed}", io)
+        config = FlameDetectorConfig(**case["detector"])
+        runs = {}
+        for tag, backend, device in (("exact", "exact", "cpu"), ("gpu-cpu", "gpu", "cpu"),
+                                     ("gpu", "gpu", gpu), ("device", "device", gpu)):
+            src = VideoSourceConfig(save_frame_images=False, save_stacked_sequences=False,
+                                    **case["source"])
+            src.output_dir = str(tmp / f"out-{seed}-{tag}")
+            counters_zero()
+            out = process_video_file(meta, src, config, backend=backend, verbose=False,
+                                     device=device)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            runs[tag] = (out, counters(), tables_of(src.output_dir))
+        route = runs["gpu"][0].phase_timings["staging_route"]
+        label = (f"sweep seed {seed} ({route}, {case['height']}x{case['width']} "
+                 f"{case['depth']}-bit{' in 16-bit words' if case['color_bit'] else ''}, "
+                 f"k={config.morphology_kernel_size}, {case['source']['detection_method']}, "
+                 f"{case['n_frames']} frames)")
+        want, want_tables = runs["exact"][0], runs["exact"][2]
+        for tag in ("gpu-cpu", "gpu", "device"):
+            out, _, tables = runs[tag]
+            if (out.rows, out.break_reason, out.empty_frame_count) != (
+                    want.rows, want.break_reason, want.empty_frame_count) \
+                    or tables != want_tables:
+                raise AssertionError(f"{label}: {tag} differs from 'exact' on the CPU")
+            if out.phase_timings["staging_route"] != route:
+                raise AssertionError(f"{label}: {tag} took {out.phase_timings['staging_route']}")
+        on_device = route != "host_exact"  # the float64 host ops launch no band kernel
+        for tag, scans in (("gpu", 0), ("device", 1)):
+            got = runs[tag][1]
+            check_launches((got[0] >= 1) == on_device and got[1] == scans, f"{label} {tag}", got)
+            totals = tuple(a + b for a, b in zip(totals, got))
+        card, cpu = (map_phase_lines(meta, config, case["source"]["skip_frames"], where)
+                     for where in (gpu, "cpu"))
+        if card.staging_route != route or cpu.staging_route != route \
+                or not np.array_equal(card.signal_counts, cpu.signal_counts):
+            raise AssertionError(f"{label}: map phase routes {card.staging_route}/"
+                                 f"{cpu.staging_route} or counts differ")
+        same = True
+        for name in lines:
+            a, b = torch.from_numpy(getattr(card, name)), torch.from_numpy(getattr(cpu, name))
+            torch.testing.assert_close(a, b, **TOL, msg=lambda m: f"{label} {name}: {m}")
+            worst = max(worst, float((a - b).abs().max()) if a.numel() else 0.0)
+            same = same and bool(torch.equal(a, b))
+        bit_equal += same
+        routes.setdefault(route, []).append(seed)
+        depths.setdefault(case["depth"], []).append(seed)
+        log(f"{label}: {len(want.rows)} rows, break {want.break_reason}, "
+            f"{want.empty_frame_count} empty; card 'gpu' and 'device' equal to the CPU's "
+            f"'exact' and 'gpu'; launches 'gpu' {runs['gpu'][1]}, 'device' "
+            f"{runs['device'][1]}; line sets within TOL, bit-equal: {same}")
+    log(f"sweep over {SWEEP_CONFIGS} configs: routes "
+        f"{ {r: len(s) for r, s in routes.items()} } (seeds {routes}), bit depths "
+        f"{ {d: len(s) for d, s in sorted(depths.items())} }; map phase line sets "
+        f"bit-equal card/CPU in {bit_equal} of {SWEEP_CONFIGS} (max abs {worst:.3e}); "
+        f"card launches (band, scan, scan videos) {totals}")
+    missing = [r for r in ROUTES if r not in routes] + [d for d in (8, 10, 12, 16)
+                                                        if d not in depths]
+    if missing:
+        raise AssertionError(f"the sweep never took {missing}")
+    return totals, dict(routes={r: len(s) for r, s in routes.items()},
+                        depths={d: len(s) for d, s in sorted(depths.items())},
+                        lines_bit_equal=bit_equal, lines_max_abs=worst)
+
+
+def library_groups(videos):
+    """The groups ``track_collection_device`` forms of ``fuzz_library_case``'s
+    recordings: one a frame shape, in file order; the fused path where the
+    shape's bit depths agree (``min(4, V)`` pipelined groups, a launch of
+    each kernel a group), else the chunked one (a band launch a video, one
+    scan over all). Returns (paths, launches (band, scan, scan videos))."""
+    shapes = {}
+    for _stem, h, w, depth, _n, _flame in sorted(videos):
+        shapes.setdefault((h, w), []).append(depth)
+    paths, band, scan = [], 0, 0
+    for shape_depths in shapes.values():
+        v = len(shape_depths)
+        if len(set(shape_depths)) == 1:
+            paths.append("fused")
+            band, scan = band + min(4, v), scan + min(4, v)
+        else:
+            paths.append("chunked")
+            band, scan = band + v, scan + 1
+    return paths, (band, scan, len(videos))
+
+
+def library_sweep(tmp, gpu):
+    """11b: library mode against the per-file 'device' run, both on the
+    card, over the random libraries. Returns the library runs' launches."""
+    import contextlib
+    import io as _io
+
+    import torch
+
+    from hsip_tpu_torch import io
+    from hsip_tpu_torch.pipeline import process_video_source, process_video_source_library
+    from hsip_tpu_torch.track import batch
+    from hsip_tpu_torch.track.config import VideoSourceConfig
+
+    totals = (0, 0, 0)
+    for seed in range(SWEEP_LIBRARY_SEEDS):
+        videos = fuzz_library_case(seed)
+        lib = tmp / f"lib-{seed}"
+        write_fuzz_library(videos, lib, io)
+
+        def source(tag):
+            cfg = VideoSourceConfig(name="FL", save_frame_images=False,
+                                    save_stacked_sequences=False,
+                                    calibration=0.000833333, position_offset=1.0)
+            cfg.video_path = str(lib)
+            cfg.output_dir = str(tmp / f"{tag}-{seed}")
+            return cfg
+
+        with contextlib.redirect_stdout(_io.StringIO()):
+            counters_zero()
+            outs = process_video_source_library(source("library"), verbose=False,
+                                                device=gpu)
+            if torch.device(gpu).type == "cuda":
+                torch.cuda.synchronize()
+            got, paths = counters(), list(batch.LAST_GROUP_PATHS)
+            process_video_source(source("per-file"), backend="device", verbose=False,
+                                 device=gpu)
+        want_paths, want = library_groups(videos)
+        shapes = ", ".join(f"{h}x{w} {d}-bit {n} frames" for _s, h, w, d, n, _f in videos)
+        if len(outs) != len(videos) or paths != want_paths:
+            raise AssertionError(f"library seed {seed} ({shapes}): {len(outs)} outputs, "
+                                 f"paths {paths}, expected {want_paths}")
+        check_launches(got == want, f"library seed {seed} (expected {want})", got)
+        tables = tables_of(tmp / f"library-{seed}")
+        if not tables or tables != tables_of(tmp / f"per-file-{seed}"):
+            raise AssertionError(f"library seed {seed}: tables differ from the per-file "
+                                 f"device run's")
+        totals = tuple(a + b for a, b in zip(totals, got))
+        log(f"library sweep seed {seed} ({shapes}): group paths {paths}, launches (band, "
+            f"scan, scan videos) {got}; {len(tables)} tables byte-equal to the per-file "
+            f"'device' run on the card")
+    return totals
+
+
+def scan_sweeps(gpu):
+    """11c: the scan kernel against its plain version, both on the card, at
+    the random configs and the adversarial value classes. Returns the
+    number of cases."""
+    import numpy as np
+    import torch
+
+    from hsip_tpu_torch import io
+    from hsip_tpu_torch.track import cuda_scan
+    from hsip_tpu_torch.track.config import FlameDetectorConfig
+    from hsip_tpu_torch.track.device_scan import tracking_scan_plain
+    from hsip_tpu_torch.track.host_scan import MIN_SIGNAL_FRACTION
+    from hsip_tpu_torch.track.scan import compute_profiles_batched
+
+    widths, cases = set(), 0
+
+    def check(label, args, kw):
+        got = cuda_scan.cuda_tracking_scan(*args, **kw)
+        want = tracking_scan_plain(*args, **kw)
+        if torch.device(gpu).type == "cuda":
+            torch.cuda.synchronize()
+        for name, a, b in zip(got._fields, got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"scan kernel != plain: {label} {name}")
+        widths.add(kw["width"])
+        return int((got.final_position >= 0).sum())
+
+    def card(x):
+        return torch.from_numpy(np.asarray(x))[None].to(gpu)
+
+    for seed in range(SWEEP_SCAN_SEEDS):
+        for method in FUZZ_METHODS:
+            case = fuzz_scan_case(seed, method)
+            config = FlameDetectorConfig(**case["detector"])
+            frames, _ = io.synthesize_flame_video(case["n"], height=case["height"],
+                                                  width=case["width"],
+                                                  flame=io.FlameSpec(**case["flame"]))
+            p = compute_profiles_batched(lambda a, b: frames[a:b], case["n"],
+                                         (case["height"], case["width"]),
+                                         float(frames[0].max()), config, chunk_size=16,
+                                         keep_device=True, device=gpu)
+            empty = p.signal_counts / p.total_pixels < MIN_SIGNAL_FRACTION
+            intens, prior = (None, p.has_prior) if method == "combined" \
+                else p.select_intensity(method, True)
+            args = (card(p.frame_indices.astype(np.int32)), p.sobel_lines[None],
+                    p.gradient_lines[None], card(empty), card(prior))
+            kw = dict(fuzz_scan_params(case, config),
+                      intensity_lines=None if intens is None else intens[None])
+            found = check(f"seed {seed} {method}", args, kw)
+            cases += 1
+            log(f"scan sweep seed {seed} {method:13s} M={case['n']} W={case['width']}: "
+                f"9/9 fields equal, {found} detections")
+    for method in FUZZ_METHODS:
+        for kind, fidx, sob, grad, prof, empty, prior, kw in adversarial_scan_cases(method):
+            args = tuple(card(x) for x in (fidx, sob, grad, empty, prior))
+            found = check(f"adversarial {method} kind {kind}", args, dict(
+                kw, intensity_lines=None if method == "combined" else card(prof)))
+            cases += 1
+            log(f"scan soak {method:13s} kind {kind} (frame rate {kw['frame_rate']}): "
+                f"9/9 fields equal, {found} detections")
+    if {w % 4 == 0 for w in widths} != {True, False}:
+        raise AssertionError(f"the scan sweeps' widths {sorted(widths)} miss one of the "
+                             f"kernel's two copy routes (W % 4 == 0 and not)")
+    log(f"scan sweeps: {cases} cases, widths {sorted(widths)}, kernel equal to its plain "
+        f"version on the card in all")
+    return cases
+
+
+def outputs_of(out_dir):
+    """Every table and figure under ``out_dir``, by path relative to it."""
+    out_dir = Path(out_dir)
+    return {str(p.relative_to(out_dir)): p.read_bytes()
+            for p in sorted(out_dir.rglob("*")) if p.suffix in (".txt", ".png")}
+
+
+def write_figure_recordings(directory, golden_meta):
+    """11d's recordings: the golden one and tests/conftest.py's 40-frame
+    64x384 12-bit one."""
+    from hsip_tpu_torch.io import CihxSpec, FlameSpec, synthesize_flame_video, write_recording
+
+    link_recording(golden_meta, directory, Path(golden_meta).stem)
+    frames, _ = synthesize_flame_video(40, height=64, width=384, flame=FlameSpec(
+        x0=40.0, v0_px=7.0, ignition_frame=2, seed=123))
+    write_recording(directory, "synthetic-run-1-a", frames, spec=CihxSpec(
+        width=384, height=64, total_frames=40, record_rate=80_000, bit_depth=12,
+        start_frame=-8, skip_frame=1))
+
+
+def write_figure_timing_recording(directory):
+    """bench.py's recording cut to FIGURE_FRAMES frames (128x1024, 12-bit)."""
+    from hsip_tpu_torch.io import CihxSpec, FlameSpec, synthesize_flame_video, write_recording
+
+    flame = FlameSpec(x0=30.0, v0_px=WIDTH / (1.3 * FIGURE_FRAMES), accel_px=0.0,
+                      ignition_frame=2, seed=42)
+    frames, _ = synthesize_flame_video(FIGURE_FRAMES, height=HEIGHT, width=WIDTH,
+                                       flame=flame)
+    write_recording(directory, "figures-run-1-001", frames, spec=CihxSpec(
+        width=WIDTH, height=HEIGHT, total_frames=FIGURE_FRAMES, record_rate=100_000,
+        bit_depth=12))
+
+
+def figure_phase(tmp, golden_meta, card, gpu):
+    """11d: ``hsip-torch --video-path D --output-dir O``, the users' default
+    route (figures on, the 'gpu' backend), on the card against ``--device
+    cpu``, then ``--library``, then its wall beside ``--no-images
+    --no-sequences``. Figures need matplotlib: where it is not installed
+    the route must be refused before any file is opened, and the rest runs
+    the route's backend with the figures off."""
+    import importlib.util
+    import shutil
+
+    from hsip_tpu_torch.pipeline import _FIGURES_NEED_MATPLOTLIB
+    from hsip_tpu_torch.track import batch
+
+    renderer = importlib.util.find_spec("matplotlib") is not None
+    rec = tmp / "fig-rec"
+    write_figure_recordings(rec, golden_meta)
+    n_files = 2
+
+    def cli(tag, video_dir, *flags):
+        out = tmp / f"fig-{tag}"
+        counters_zero()
+        rc, wall, stdout, err = run_cli(["--video-path", str(video_dir), "--output-dir",
+                                         str(out), *flags])
+        return rc, counters(), out, stdout, err, wall
+
+    def ran(tag, video_dir, *flags):
+        rc, got, out, stdout, err, wall = cli(tag, video_dir, *flags)
+        if rc != 0 or "Processing complete!" not in stdout:
+            raise AssertionError(f"hsip-torch {list(flags)} returned {rc}: {err[-2000:]}")
+        return got, out, wall
+
+    if not renderer:
+        for tag, flags in (("refused", []), ("refused-cpu", ["--device", "cpu"]),
+                           ("refused-library", ["--library"])):
+            rc, got, out, _, err, _ = cli(tag, rec, *flags)
+            if rc != 2 or err.strip() != _FIGURES_NEED_MATPLOTLIB or out.exists() \
+                    or got != (0, 0, 0):
+                raise AssertionError(f"hsip-torch {flags} without matplotlib: exit {rc}, "
+                                     f"launches {got}, wrote {out.exists()}: {err[-500:]}")
+        log("matplotlib is not installed on this machine: hsip-torch's default route "
+            "(figures on) exits 2 before opening a file, on the card, with --device cpu "
+            "and with --library, launching nothing; below, the route's backend ('gpu') "
+            "runs with the figures off, so no figure is compared or timed")
+    route = [] if renderer else ["--backend", "gpu", *TABLES_ONLY]
+    figures, out_card, _ = ran("card", rec, *route)
+    check_launches(figures[0] >= n_files and figures[1] == 0,
+                   "the default route on the card", figures)
+    _, out_cpu, _ = ran("cpu", rec, *route, "--device", "cpu")
+    on_card, on_cpu = outputs_of(out_card), outputs_of(out_cpu)
+    pngs = {k: v for k, v in on_card.items() if k.endswith(".png")}
+    n_tables = len(on_card) - len(pngs)
+    if on_card != on_cpu or n_tables < n_files or (renderer and len(pngs) < 2 * n_files):
+        raise AssertionError(f"default route: {len(on_card)} files on the card, "
+                             f"{len(on_cpu)} on the CPU, not byte-equal or too few")
+    log(f"hsip-torch {' '.join(route) or '(no flags)'} over the golden and a 40-frame "
+        f"recording: {n_tables} tables and {len(pngs)} PNGs byte-equal between the card "
+        f"and --device cpu; card launches (band, scan, scan videos) {figures}")
+
+    _, out_dev, _ = ran("device", rec, "--backend", "device", *TABLES_ONLY)
+    library, out_lib, _ = ran("library", rec, "--library", *([] if renderer else TABLES_ONLY))
+    paths = list(batch.LAST_GROUP_PATHS)
+    check_launches(library[1] == len(paths) and library[0] >= len(paths) + (
+        n_files if renderer else 0), f"--library (group paths {paths})", library)
+    on_lib = outputs_of(out_lib)
+    lib_pngs = {k: v for k, v in on_lib.items() if k.endswith(".png")}
+    if {k: v for k, v in on_lib.items() if k.endswith(".txt")} != outputs_of(out_dev) \
+            or lib_pngs != pngs:
+        raise AssertionError("--library: tables differ from the per-file device run's or "
+                             "figures from the per-file figure run's")
+    log(f"hsip-torch --library{'' if renderer else ' --no-images --no-sequences'}: group "
+        f"paths {paths}, launches {library}; tables byte-equal to the per-file 'device' "
+        f"run, {len(lib_pngs)} PNGs byte-equal to the per-file figure run")
+
+    # Times on bench's recording cut to FIGURE_FRAMES frames, in turns (the
+    # order reversed every other round); 11d's runs above warmed both routes.
+    big = tmp / "fig-timed"
+    write_figure_timing_recording(big)
+    timed = {"default": route, "tables-only": TABLES_ONLY}
+    walls, counts = {key: [] for key in timed}, {}
+    for i in range(3):
+        for key in (list(timed) if i % 2 == 0 else list(timed)[::-1]):
+            got, out, wall = ran(f"t-{key}-{i}", big, *timed[key])
+            want = (1, 0, 0) if key == "default" else (1, 1, 1)
+            check_launches(got == want, f"timed {key} run", got)
+            counts[key] = sum(1 for _ in out.rglob("*.png"))
+            shutil.rmtree(out)
+            walls[key].append(wall)
+    med = {key: statistics.median(x) for key, x in walls.items()}
+    share = ((med["default"] - med["tables-only"]) / med["default"] if renderer
+             else None)
+    log(f"[{card}] hsip-torch {' '.join(route) or '(no flags)'} on {FIGURE_FRAMES}x{HEIGHT}x"
+        f"{WIDTH} 12-bit: {med['default']:.4f} s, {FIGURE_FRAMES / med['default']:.1f} "
+        f"frames/s, {counts['default']} PNGs (median of 3 in turns: "
+        f"{', '.join(f'{x:.4f}' for x in walls['default'])}); --no-images --no-sequences "
+        f"{med['tables-only']:.4f} s, {FIGURE_FRAMES / med['tables-only']:.1f} frames/s "
+        f"({', '.join(f'{x:.4f}' for x in walls['tables-only'])}); render share "
+        f"{'not measured (no matplotlib)' if share is None else f'{share:.4f}'}")
+    return dict(renderer=renderer, figures=figures, library_figures=library, pngs=len(pngs),
+                timed_pngs=counts["default"], default_s=med["default"],
+                tables_only_s=med["tables-only"], render_share=share)
+
+
+def sweep_phase(tmp, golden_meta, card):
+    """Phase 11. Returns the launch counts and what it measured."""
+    t_phase = time.perf_counter()
+    sweep, covered = pipeline_sweep(tmp / "sweep", GPU)
+    library = library_sweep(tmp / "sweep-library", GPU)
+    scan_cases = scan_sweeps(GPU)
+    figures = figure_phase(tmp, golden_meta, card, GPU)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 11 took {seconds:.1f} s")
+    return dict(covered, sweep=sweep, library=library, scan_cases=scan_cases,
+                seconds=seconds, **figures)
+
+
 def main() -> int:
     if not (REPO / "hsip_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from the root of a checkout (hsip_tpu_torch/ "
@@ -1583,6 +2229,9 @@ def main() -> int:
         # ---- phase 10: the benchmark and the stage tools ----
         bench_launches = bench_phase(tmp, meta, card, kind)
 
+        # ---- phase 11: the sweeps of tests/test_fuzz.py, the default route ----
+        sweep = sweep_phase(tmp, golden_meta, card)
+
     log(json.dumps({"library": {
         "frames": 8 * N_FRAMES, "loop_s": lib_times["loop_s"], "library_s": lib_times["lib_s"],
         "peak_device_bytes": lib_times["peak"], "budget_estimate_bytes": lib_times["estimate"],
@@ -1601,6 +2250,15 @@ def main() -> int:
         "track_video_s": mesh_times["track_video"],
         "track_video_mesh_2_slots_s": mesh_times["track_video-mesh-2"],
         "launches": mesh_launches}}))
+    log(json.dumps({"sweep": {
+        "configs": SWEEP_CONFIGS, "routes": sweep["routes"],
+        "bit_depths": {str(d): n for d, n in sweep["depths"].items()},
+        "lines_bit_equal": sweep["lines_bit_equal"], "lines_max_abs": sweep["lines_max_abs"],
+        "library_seeds": SWEEP_LIBRARY_SEEDS, "scan_cases": sweep["scan_cases"],
+        "matplotlib": sweep["renderer"], "figure_pngs": sweep["pngs"],
+        "timed_frames": FIGURE_FRAMES, "timed_pngs": sweep["timed_pngs"],
+        "default_route_s": sweep["default_s"], "tables_only_s": sweep["tables_only_s"],
+        "render_share": sweep["render_share"], "phase_s": sweep["seconds"]}}))
     log(card)
     # No single PyTorch call computes either kernel's function: library_ms
     # is null for both.
@@ -1613,6 +2271,9 @@ def main() -> int:
          "launches_mesh": mesh_launches["track_video"][0],
          "launches_mesh_library": mesh_launches["library"][0],
          "launches_bench": bench_launches[0],
+         "launches_sweep": sweep["sweep"][0], "launches_sweep_library": sweep["library"][0],
+         "launches_figures": sweep["figures"][0],
+         "launches_figures_library": sweep["library_figures"][0],
          "max_abs_err": band_err,
          "ms": band_ms, "plain_ms": band_plain_ms,
          "bound_ms": band_bound_ms, "bound_by": band_bound_by,
@@ -1627,6 +2288,10 @@ def main() -> int:
          "launches_mesh": mesh_launches["track_video"][1],
          "launches_mesh_library": mesh_launches["library"][1],
          "launches_bench": bench_launches[1],
+         "launches_sweep": sweep["sweep"][1], "launches_sweep_library": sweep["library"][1],
+         "videos_sweep_library": sweep["library"][2],
+         "launches_figures": sweep["figures"][1],
+         "launches_figures_library": sweep["library_figures"][1],
          "max_abs_err": scan_err,
          "ms": scan_ms, "plain_ms": scan_plain_ms,
          "bound_ms": scan_bound_ms, "bound_by": scan_bound_by,

@@ -485,6 +485,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     from . import pipeline
     from .utils.profiling import profile_trace
 
+    # Figures need matplotlib (an optional dependency): refused here, before
+    # any file is opened, or each recording would fail at its figure step.
+    try:
+        for cfg in sources:
+            if cfg.enabled:
+                pipeline._require_figure_renderer(cfg)
+    except ModuleNotFoundError as exc:
+        print(str(exc), file=sys.stderr)
+        return 2
+
     def run_pass(resume: bool, verbose: bool, failure_cache=None) -> int:
         n = 0
         for cfg in sources:

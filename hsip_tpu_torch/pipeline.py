@@ -36,6 +36,12 @@ __all__ = ["process_video_file", "process_video_source",
 
 _log = get_logger("pipeline")
 
+_FIGURES_NEED_MATPLOTLIB = (
+    "figures (save_frame_images, save_stacked_sequences) are drawn with "
+    "matplotlib, which is not installed: install it (the package's 'viz' "
+    "extra), or turn the figures off (--no-images --no-sequences)"
+)
+
 BACKENDS = ("gpu", "device", "exact")
 
 RESULT_COLUMNS = [
@@ -138,6 +144,22 @@ def _write_ddt_split_tables(
 
 
 
+def _require_figure_renderer(config, save_images=None, write_outputs=True) -> None:
+    """Raise ``ModuleNotFoundError`` when ``config`` asks for figures (read
+    as :func:`process_video_file` reads it) and matplotlib, an optional
+    dependency, cannot be imported. The runners call it before they open
+    any recording: a figure step that failed after the tracking lost the
+    recording's tables."""
+    images = config.save_frame_images if save_images is None else save_images
+    if not (write_outputs and config.output_dir
+            and (images or config.save_stacked_sequences)):
+        return
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as exc:
+        raise ModuleNotFoundError(_FIGURES_NEED_MATPLOTLIB, name="matplotlib") from exc
+
+
 def process_video_file(
     cihx_file,
     config: VideoSourceConfig,
@@ -162,13 +184,16 @@ def process_video_file(
 
     ``device`` is a torch device; ``None`` means ``cuda``, and then 'gpu'
     and 'device' raise ``RuntimeError`` when CUDA is unavailable. The CPU
-    runs only when named (``device="cpu"``).
+    runs only when named (``device="cpu"``). Figures need matplotlib: a
+    call that asks for them without it raises ``ModuleNotFoundError``
+    before the recording is opened.
     """
     if backend not in BACKENDS:
         raise ValueError(
             f"Unknown backend: {backend!r} (expected 'gpu', 'device' or 'exact')"
         )
     dev = resolve_device(device) if backend != "exact" else None
+    _require_figure_renderer(config, save_images, write_outputs)
     cihx_file = Path(cihx_file)
     detector_config = detector_config or FlameDetectorConfig()
     file_calibration, file_position_offset = config.get_calibration_for_file(
@@ -663,6 +688,8 @@ def process_video_source(
     for ``resume``; a kernel that does not build or launch
     (:class:`~hsip_tpu_torch.kernels._build.KernelError`) is raised, and so
     is a CUDA error that torch reports later (:func:`_is_device_failure`).
+    Figures without matplotlib raise ``ModuleNotFoundError`` before any
+    file is touched (:func:`_require_figure_renderer`).
     """
     import time as _time
 
@@ -671,6 +698,7 @@ def process_video_source(
             f"Unknown backend: {backend!r} (expected 'gpu', 'device' or 'exact')"
         )
     dev = resolve_device(device) if backend != "exact" else None
+    _require_figure_renderer(config)
     is_root = processor is None or processor.is_root
     cihx_files = _discover_source_files(config, processor, verbose, is_root)
     if cihx_files is None:
@@ -776,6 +804,7 @@ def process_video_source_library(
     if mesh is not None and device is None:
         device = mesh.devices.flat[0]
     dev = resolve_device(device)
+    _require_figure_renderer(config)
     detector_config = detector_config or FlameDetectorConfig()
     is_root = processor is None or processor.is_root
     cihx_files = _discover_source_files(

@@ -13,6 +13,7 @@ ends the run) are held. ``--library --mesh`` runs on CPU slots.
 import dataclasses
 import json
 import shutil
+import sys
 from pathlib import Path
 
 import pytest
@@ -577,3 +578,57 @@ def test_entry_survives_a_closed_pipe(monkeypatch):
         m.setattr(os, "dup2", fake_dup2)
         assert port_cli.entry() == 0
     assert len(duped) == 1
+
+
+# ---- figures without matplotlib (an optional dependency) ----
+
+
+@pytest.mark.parametrize("flags", [[], ["--library"], ["--no-sequences"],
+                                   ["--no-images"]],
+                         ids=["per-file", "library", "images", "sequences"])
+def test_figures_without_matplotlib_exit_2_and_write_nothing(one_video, tmp_path,
+                                                             capsys, monkeypatch,
+                                                             flags):
+    """The default route (figures on) on a machine without matplotlib is
+    refused before any file is opened. It used to process each recording,
+    fail it at the figure step (no table written) and exit 0; --library
+    wrote the tables and warned about every figure."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    out = tmp_path / "o"
+    argv = ["--video-path", str(one_video), "--output-dir", str(out), *CPU, *flags]
+    assert port_cli.main(argv) == 2
+    captured = capsys.readouterr()
+    assert captured.err.strip() == port_pipeline._FIGURES_NEED_MATPLOTLIB
+    assert "--no-images --no-sequences" in captured.err and not captured.out
+    assert not out.exists()
+
+
+def test_tables_only_need_no_matplotlib(one_video, tmp_path, monkeypatch):
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    assert _port(one_video, tmp_path / "o", *TABLES_ONLY) == 0
+    assert _port(one_video, tmp_path / "lib", *TABLES_ONLY, "--library") == 0
+    assert _tables(tmp_path / "o") and _tables(tmp_path / "o") == _tables(tmp_path / "lib")
+
+
+@pytest.mark.parametrize("runner", ["file", "source", "library"])
+def test_runners_refuse_figures_without_matplotlib(one_video, tmp_path, monkeypatch,
+                                                   runner):
+    """The Python entry points raise before any recording is opened."""
+    from hsip_tpu_torch.track.config import VideoSourceConfig
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    cfg = VideoSourceConfig(name="S", save_stacked_sequences=runner == "file")
+    cfg.video_path = str(one_video)
+    cfg.output_dir = str(tmp_path / "o")
+    call = {
+        "file": lambda: port_pipeline.process_video_file(
+            next(one_video.glob("*.cihx")), cfg, verbose=False, save_images=False,
+            device="cpu"),
+        "source": lambda: port_pipeline.process_video_source(cfg, verbose=False,
+                                                             device="cpu"),
+        "library": lambda: port_pipeline.process_video_source_library(
+            cfg, verbose=False, device="cpu"),
+    }[runner]
+    with pytest.raises(ModuleNotFoundError, match="--no-images --no-sequences"):
+        call()
+    assert not (tmp_path / "o").exists()

@@ -478,3 +478,88 @@ def test_track_video_over_a_frame_mesh_on_the_card(tmp_path, slots, scan):
     assert cuda_band_profiles.launches - band0 == 3 * slots
     assert [r[:4] for r in got.rows] == [r[:4] for r in want.rows]
     assert len(want.rows) > 10
+
+
+# ---- the sweeps of tests/test_fuzz.py on the card (the draws as
+# chip_smoke.py writes them out; tests/test_torch_fuzz.py holds them to the
+# JAX file's) ----
+
+
+@pytest.fixture(scope="module")
+def recipes():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_recipes", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture()
+def card():
+    return _cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+def test_scan_kernel_adversarial_classes(card, recipes, method):
+    """Noise, heavy ties, sparse spikes and a flat plateau at W=250, M=25,
+    edge margin 0, scattered frame indices, frame rate 0 drawn: all nine
+    fields equal to the plain version's."""
+    frame_rates = set()
+    for kind, fidx, sob, grad, prof, empty, prior, kw in recipes.adversarial_scan_cases(method):
+        args = tuple(torch.from_numpy(x)[None].to(card) for x in (fidx, sob, grad, empty, prior))
+        kw = dict(kw, intensity_lines=None if method == "combined"
+                  else torch.from_numpy(prof)[None].to(card))
+        got = cuda_tracking_scan(*args, **kw)
+        want = tracking_scan_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(got._fields, got, want):
+            assert torch.equal(a, b), (kind, name)
+        frame_rates.add(float(kw["frame_rate"]))
+    assert frame_rates & {0.0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,route,depth", [(1, "packed", 12), (0, "band+counts", 8)],
+                         ids=["packed-12-bit", "8-bit"])
+def test_sweep_config_on_the_card_equals_the_cpu_run(tmp_path, card, recipes, seed, route,
+                                                     depth):
+    """A config of the sweep whose rows are not byte-aligned (the 'packed'
+    route: whole frames decoded on the card) and an 8-bit one, both
+    backends on the card against the CPU run."""
+    from hsip_tpu_torch import io
+    from hsip_tpu_torch.pipeline import process_video_file
+
+    case = recipes.fuzz_pipeline_case(seed)
+    assert case["depth"] == depth
+    meta = recipes.write_fuzz_recording(case, tmp_path / "rec", io)
+    config = FlameDetectorConfig(**case["detector"])
+    lines = [recipes.map_phase_lines(meta, config, case["source"]["skip_frames"], where)
+             for where in (card, "cpu")]
+    assert lines[0].staging_route == lines[1].staging_route == route
+    assert np.array_equal(lines[0].signal_counts, lines[1].signal_counts)
+    for name in ("sobel_lines", "gradient_lines", "intensity_lines", "raw_center_lines"):
+        torch.testing.assert_close(torch.from_numpy(getattr(lines[0], name)),
+                                   torch.from_numpy(getattr(lines[1], name)),
+                                   atol=1e-4, rtol=1e-5)
+    for backend in ("gpu", "device"):
+        outs = {}
+        for i, where in enumerate((card, "cpu")):
+            src = VideoSourceConfig(save_frame_images=False, save_stacked_sequences=False,
+                                    **case["source"])
+            src.output_dir = str(tmp_path / f"{backend}-{i}")
+            bands = cuda_band_profiles.launches
+            outs[where] = process_video_file(meta, src, config, backend=backend,
+                                             verbose=False, device=where)
+            launched = cuda_band_profiles.launches - bands
+            assert outs[where].phase_timings["staging_route"] == route
+            assert (launched >= 1) == (where is card), (backend, where)
+        a, b = outs[card], outs["cpu"]
+        assert (a.rows, a.break_reason, a.empty_frame_count) == (
+            b.rows, b.break_reason, b.empty_frame_count)
+        tables = [sorted((p.name, p.read_bytes())
+                         for p in (tmp_path / f"{backend}-{i}").glob("*.txt"))
+                  for i in range(2)]
+        assert tables[0] == tables[1]
