@@ -114,7 +114,12 @@ Phases, each fatal when it fails:
    ``--library`` with figures (tables equal to the per-file 'device' run,
    PNGs to the per-file figure run, one scan launch a group); the route's
    wall beside ``--no-images --no-sequences`` on a 512-frame 128x1024
-   recording (medians of 3 in turns), its PNG count and render share.
+   recording (medians of 3 in turns), its PNG count and render share;
+   before these, ``process_video_source`` over two good recordings and
+   one whose ``.mraw`` is cut short, figures off, backends 'gpu',
+   'device' and 'exact' on the card: one warning, 2 outputs, the bad
+   file under ``failures``, tables byte-equal to the CPU's, launches
+   (band, scan) (2, 0), (2, 2) and (0, 0).
    Figures need matplotlib; on a machine without it the default route
    must exit 2 before opening a file, and (d) runs the route's backend
    with the figures off.
@@ -1832,6 +1837,69 @@ def write_figure_timing_recording(directory):
         bit_depth=12))
 
 
+def corrupt_source_check(tmp, rec, gpu):
+    """11d: ``process_video_source`` over ``rec``'s two good recordings and a
+    third whose ``.mraw`` is cut to 100 bytes, figures off, with ``backend``
+    'gpu', 'device' and 'exact' on ``gpu``: each run warns once, returns 2
+    outputs, lists the bad file under ``failures``, writes tables byte-equal
+    to the same backend's run on the CPU, and launches (band, scan) (2, 0),
+    (2, 2) and (0, 0). Returns {backend: launches}."""
+    import contextlib
+    import io
+    import shutil
+
+    from hsip_tpu_torch.io import CihxSpec, FlameSpec, synthesize_flame_video, write_recording
+    from hsip_tpu_torch.pipeline import process_video_source
+
+    src = tmp / "corrupt-src"
+    src.mkdir()
+    for cihx in sorted(rec.glob("*.cihx")):
+        link_recording(cihx, src, cihx.stem)
+    frames, _ = synthesize_flame_video(20, height=48, width=256, flame=FlameSpec(
+        x0=25.0, v0_px=6.0, ignition_frame=2, seed=5))
+    bad = write_recording(src, "partial-run-1-001", frames, spec=CihxSpec(
+        width=256, height=48, total_frames=20, record_rate=100_000, bit_depth=12))
+    mraw = Path(bad).with_suffix(".mraw")
+    mraw.write_bytes(mraw.read_bytes()[:100])
+
+    def run(backend, device):
+        out = tmp / f"corrupt-{backend}-{device}"
+        cfg = library_source(src, out)
+        counters_zero()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            outs = process_video_source(cfg, backend=backend, verbose=False,
+                                        device=device)
+        got = counters()
+        summary = json.loads((out / "run-summary.json").read_text())
+        failed = [f["file"] for f in summary["failures"]]
+        warned = text.getvalue().count("Could not process")
+        if warned != 1 or len(outs) != 2 or failed != [Path(bad).name] \
+                or len(summary["files"]) != 2:
+            raise AssertionError(f"corrupt source, backend {backend!r} on {device}: "
+                                 f"{warned} warnings, {len(outs)} outputs, failures "
+                                 f"{failed}")
+        tables = tables_of(out)
+        shutil.rmtree(out)
+        return got, tables
+
+    want = {"gpu": (2, 0), "device": (2, 2), "exact": (0, 0)}
+    launched = {}
+    for backend, (band, scan) in want.items():
+        got, tables = run(backend, gpu)
+        check_launches(got[:2] == (band, scan), f"corrupt source, backend {backend!r}", got)
+        _, on_cpu = run(backend, "cpu")
+        if not tables or tables != on_cpu:
+            raise AssertionError(f"corrupt source, backend {backend!r}: tables differ "
+                                 f"from the CPU run's")
+        launched[backend] = got[:2]
+    log(f"process_video_source over 2 good recordings and one with its .mraw cut to "
+        f"100 bytes, backends gpu/device/exact on {gpu}: each warned once, returned 2 "
+        f"outputs, listed {Path(bad).name} under failures, tables byte-equal to the CPU "
+        f"run's; launches (band, scan) {launched}")
+    return launched
+
+
 def figure_phase(tmp, golden_meta, card, gpu):
     """11d: ``hsip-torch --video-path D --output-dir O``, the users' default
     route (figures on, the 'gpu' backend), on the card against ``--device
@@ -1849,6 +1917,7 @@ def figure_phase(tmp, golden_meta, card, gpu):
     rec = tmp / "fig-rec"
     write_figure_recordings(rec, golden_meta)
     n_files = 2
+    corrupt = corrupt_source_check(tmp, rec, gpu)
 
     def cli(tag, video_dir, *flags):
         out = tmp / f"fig-{tag}"
@@ -1931,7 +2000,8 @@ def figure_phase(tmp, golden_meta, card, gpu):
         f"{'not measured (no matplotlib)' if share is None else f'{share:.4f}'}")
     return dict(renderer=renderer, figures=figures, library_figures=library, pngs=len(pngs),
                 timed_pngs=counts["default"], default_s=med["default"],
-                tables_only_s=med["tables-only"], render_share=share)
+                tables_only_s=med["tables-only"], render_share=share,
+                corrupt_source=corrupt)
 
 
 def sweep_phase(tmp, golden_meta, card):
@@ -2258,7 +2328,8 @@ def main() -> int:
         "matplotlib": sweep["renderer"], "figure_pngs": sweep["pngs"],
         "timed_frames": FIGURE_FRAMES, "timed_pngs": sweep["timed_pngs"],
         "default_route_s": sweep["default_s"], "tables_only_s": sweep["tables_only_s"],
-        "render_share": sweep["render_share"], "phase_s": sweep["seconds"]}}))
+        "render_share": sweep["render_share"], "phase_s": sweep["seconds"],
+        "corrupt_source_launches": {b: list(n) for b, n in sweep["corrupt_source"].items()}}}))
     log(card)
     # No single PyTorch call computes either kernel's function: library_ms
     # is null for both.

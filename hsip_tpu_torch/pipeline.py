@@ -584,12 +584,14 @@ def _is_device_failure(exc: BaseException, dev) -> bool:
     :class:`KernelError` always; on a CUDA device also what torch raises
     for a fault that surfaces later than its launch (an illegal access
     reported at the next synchronisation, out of memory). Such an error is
-    sticky: every later recording would fail the same way."""
+    sticky: every later recording would fail the same way. ``dev`` is
+    ``None`` for the ``exact`` backend, which runs on no device: there only
+    a :class:`KernelError` counts."""
     import torch
 
     if isinstance(exc, KernelError):
         return True
-    if dev.type != "cuda":
+    if dev is None or dev.type != "cuda":
         return False
     device_errors = (torch.cuda.OutOfMemoryError,
                      getattr(torch, "AcceleratorError", torch.cuda.OutOfMemoryError))

@@ -503,6 +503,34 @@ def test_watch_corrupt_file_warns_once(one_video, tmp_path, monkeypatch, capsys,
     assert (out / "cli-run-1-a-flame-position.txt").exists()
 
 
+@pytest.mark.parametrize("flags", [[], ["--watch", "0.2"]], ids=["run", "watch"])
+def test_exact_backend_passes_over_a_corrupt_recording(videos, tmp_path,
+                                                       monkeypatch, capsys,
+                                                       flags):
+    """``--backend exact`` runs on no device, and one unreadable recording
+    must not end it: a warning, the file under ``failures``, exit 0, and the
+    good recordings' tables equal to ``hsip --backend exact``'s."""
+    src = tmp_path / "src"
+    shutil.copytree(videos, src)
+    (src / "zz-corrupt.cihx").write_bytes(b"\x00" * 64)
+    import time as time_mod
+
+    def stop(_secs):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(time_mod, "sleep", stop)
+    assert _port(src, tmp_path / "port", "--backend", "exact", *TABLES_ONLY,
+                 *flags) == 0
+    assert capsys.readouterr().out.count("Could not process") == 1
+    assert _jax(src, tmp_path / "jax", "--backend", "exact", *TABLES_ONLY) == 0
+    want = _tables(tmp_path / "jax")
+    assert len({n.split("-flame")[0] for n in want}) == 3
+    assert _tables(tmp_path / "port") == want
+    summary = json.loads((tmp_path / "port" / "run-summary.json").read_text())
+    assert [f["file"] for f in summary["failures"]] == ["zz-corrupt.cihx"]
+    assert len(summary["files"]) == 3
+
+
 def test_watch_stop_sentinel(one_video, tmp_path, monkeypatch, capsys):
     """A stale sentinel is removed at the start; one made during the watch
     stops the loop at the next poll."""

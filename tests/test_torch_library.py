@@ -105,14 +105,29 @@ def _tables(pipeline_mod, outs, out_dir):
     return {p.name: p.read_bytes() for p in sorted(out_dir.glob("*.txt"))}
 
 
-def _assert_same(got, want):
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert g.merged_rows() == w.merged_rows()
-        assert g.break_reason == w.break_reason
-        assert g.break_frame == w.break_frame
-        assert g.empty_frame_count == w.empty_frame_count
-        assert g.total_frames == w.total_frames
+def _assert_same(got, want, what="port against reference"):
+    """Every output of ``got`` equals ``want``'s; a mismatch names the
+    field, the video index and both values."""
+    assert len(got) == len(want), f"{what}: {len(got)} outputs against {len(want)}"
+    for i, (g, w) in enumerate(zip(got, want)):
+        rg, rw = g.merged_rows(), w.merged_rows()
+        if rg != rw:
+            j = next((j for j, (a, b) in enumerate(zip(rg, rw)) if a != b),
+                     min(len(rg), len(rw)))
+            pytest.fail(f"{what}: video {i}, merged_rows: {len(rg)} rows against "
+                        f"{len(rw)}, first difference at row {j}: "
+                        f"{rg[j] if j < len(rg) else None} against "
+                        f"{rw[j] if j < len(rw) else None}")
+        for field in ("break_reason", "break_frame", "empty_frame_count",
+                      "total_frames"):
+            a, b = getattr(g, field), getattr(w, field)
+            assert a == b, f"{what}: video {i}, {field}: {a!r} against {b!r}"
+
+
+def _assert_same_tables(got, want, what):
+    """Byte-equal table sets; a mismatch names the files that differ."""
+    differ = sorted(n for n in set(got) | set(want) if got.get(n) != want.get(n))
+    assert not differ, f"{what}: tables differ: {differ}"
 
 
 def _check_against_both(d, tmp_path, det_kw=None, sc_kw=None, jax_mode=None,
@@ -135,16 +150,20 @@ def _check_against_both(d, tmp_path, det_kw=None, sc_kw=None, jax_mode=None,
     if jax_mode is not None:
         monkeypatch.setattr(jax_batch, "_PALLAS_MODE", jax_mode)
     got = _port_library(d, FlameDetectorConfig(**det_kw), source_config=sc)
-    assert port_batch.LAST_GROUP_PATHS and set(port_batch.LAST_GROUP_PATHS) == {"fused"}
+    paths = port_batch.LAST_GROUP_PATHS
+    assert paths and set(paths) == {"fused"}, f"group paths {paths}"
     ref = _jax_library(d, JaxDetectorConfig(**det_kw), source_config=jsc)
     per_file = _port_per_file(d, FlameDetectorConfig(**det_kw), sc)
-    assert any(o.rows for o in got)
-    _assert_same(got, ref)
-    _assert_same(got, per_file)
+    assert any(o.rows for o in got), "the port's library run tracked no rows"
+    _assert_same(got, ref, "port library against JAX library")
+    _assert_same(got, per_file, "port library against port per-file")
     port_tables = _tables(port_pipeline, got, tmp_path / "t_port")
-    assert port_tables
-    assert port_tables == _tables(jax_pipeline, ref, tmp_path / "t_jax")
-    assert port_tables == _tables(port_pipeline, per_file, tmp_path / "t_file")
+    assert port_tables, "the port's library run wrote no table"
+    _assert_same_tables(port_tables, _tables(jax_pipeline, ref, tmp_path / "t_jax"),
+                        "port library against JAX library")
+    _assert_same_tables(port_tables,
+                        _tables(port_pipeline, per_file, tmp_path / "t_file"),
+                        "port library against port per-file")
     return got
 
 
@@ -421,7 +440,7 @@ def test_small_group_budget_splits_into_sub_batches(tmp_path):
     _assert_same(split, whole)
 
 
-def test_mesh_is_not_ported(tmp_path):
+def test_mesh_library_equals_the_unsharded_run(tmp_path):
     """A mesh library run (two CPU slots) equals the unsharded one, through
     the tracker and through the source runner, tables included."""
     from hsip_tpu_torch.parallel import make_mesh

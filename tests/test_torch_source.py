@@ -125,23 +125,34 @@ def test_per_file_runner_matches_jax_runner(library_dir, tmp_path, port_backend,
     assert _summary(out_port) == _summary(out_jax)
 
 
-@pytest.mark.parametrize("runner", ["library", "per_file"])
+@pytest.mark.parametrize("runner", ["library", "gpu", "device", "exact"])
 def test_corrupt_recording_warns_and_is_skipped(library_dir, tmp_path, capsys, runner):
+    """One unreadable recording is warned about, listed under ``failures``
+    and passed over, on every route; the others' tables and the summary
+    equal the JAX runner's on the same directory. ``exact`` runs on no
+    device (``device=None`` is the CPU there), the case that once lost the
+    whole batch."""
     (library_dir / "broken.cihx").write_bytes(b"\x00 not a header" * 32)
-    out = tmp_path / "out"
-    cfg = _source(library_dir, out)
+    out, out_jax = tmp_path / "out", tmp_path / "jax"
+    cfg, jcfg = _source(library_dir, out), _source(library_dir, out_jax, jax=True)
     if runner == "library":
         outs = port_pipeline.process_video_source_library(cfg, verbose=False,
                                                           device="cpu")
-        assert "Could not load" in capsys.readouterr().out
+        assert capsys.readouterr().out.count("Could not load") == 1
+        jax_pipeline.process_video_source_library(jcfg, verbose=False)
     else:
-        outs = port_pipeline.process_video_source(cfg, backend="device",
-                                                  verbose=False, device="cpu")
-        assert "Could not process" in capsys.readouterr().out
+        outs = port_pipeline.process_video_source(
+            cfg, backend=runner, verbose=False,
+            device=None if runner == "exact" else "cpu")
+        assert capsys.readouterr().out.count("Could not process") == 1
+        jax_pipeline.process_video_source(
+            jcfg, backend={"gpu": "tpu"}.get(runner, runner), verbose=False)
     assert len(outs) == 3  # the three good recordings still tracked
     summary = json.loads((out / "run-summary.json").read_text())
     assert [f["file"] for f in summary["failures"]] == ["broken.cihx"]
     assert len(summary["files"]) == 3
+    assert _tables(out) and _tables(out) == _tables(out_jax)
+    assert _summary(out) == _summary(out_jax)
 
 
 @pytest.mark.parametrize("runner", ["library", "per_file"])
