@@ -30,6 +30,16 @@ from hsip_tpu_torch.io import (  # noqa: E402
 )
 from hsip_tpu_torch.kernels._build import KernelError  # noqa: E402
 
+from test_torch_library import pin_reference_puts  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _reference_puts_copy(monkeypatch):
+    """The JAX package's library runs here put private copies
+    (``test_torch_library.pin_reference_puts``)."""
+    pin_reference_puts(monkeypatch)
+
+
 REPO = Path(__file__).resolve().parents[1]
 
 TOML = """

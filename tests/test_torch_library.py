@@ -9,11 +9,16 @@ the Pallas kernel in interpret mode) and those of the port's per-file
 ``device`` scan. Tolerance: none — merged rows (positions, times, float64
 velocities), ``break_reason``, ``empty_frame_count`` and the bytes of every
 table are equal.
+
+Every JAX run of this file hands its device puts private copies
+(:func:`pin_reference_puts`): on the CPU the JAX package's pipelined groups
+can otherwise read a staging buffer that the next group has refilled.
 """
 
 import os
 import time
 
+import jax
 import numpy as np
 import pytest
 from hypothesis import given, settings
@@ -25,6 +30,7 @@ import hsip_tpu  # noqa: E402
 import hsip_tpu.pipeline as jax_pipeline  # noqa: E402
 import hsip_tpu.track.batch as jax_batch  # noqa: E402
 import hsip_tpu.track.fused as jax_fused  # noqa: E402
+from hsip_tpu.kernels.preprocess import band_margin as jax_band_margin  # noqa: E402
 from hsip_tpu.track import FlameDetectorConfig as JaxDetectorConfig  # noqa: E402
 from hsip_tpu.track.config import VideoSourceConfig as JaxSourceConfig  # noqa: E402
 
@@ -40,6 +46,35 @@ from hsip_tpu_torch.track.config import (  # noqa: E402
 )
 from hsip_tpu_torch.track.scan import track_video  # noqa: E402
 from hsip_tpu_torch.utils import StageTimes  # noqa: E402
+
+
+def pin_reference_puts(monkeypatch):
+    """Make every ``jax.device_put`` of a numpy array put a private copy.
+
+    The JAX package's fused library stages each pipelined group in one
+    pooled host buffer, and the next group's gather refills it as soon as
+    the group's puts are ready (``hsip_tpu/track/fused.py``,
+    ``_pooled_staging``). On a CPU backend a put of a 64-byte-aligned numpy
+    array is no copy: the device array IS the pooled buffer, ready at once,
+    and the group's program runs asynchronously. If it has not read its
+    input when the next gather lands, it tracks the next group's videos.
+    Whether the pool's buffer is aligned depends on the heap, so the
+    reference's answer changed from run to run. With a private copy each
+    put holds its own gather's bytes, as a put to a device's own memory
+    does. Output-neutral for the port, which never calls JAX."""
+    put = jax.device_put
+
+    def copying_put(x, *args, **kwargs):
+        if isinstance(x, np.ndarray):
+            x = x.copy()
+        return put(x, *args, **kwargs)
+
+    monkeypatch.setattr(jax, "device_put", copying_put)
+
+
+@pytest.fixture(autouse=True)
+def _reference_puts_copy(monkeypatch):
+    pin_reference_puts(monkeypatch)
 
 
 def _write(d, name, n_frames=40, height=64, width=384, seed=0, bit_depth=12,
@@ -210,6 +245,88 @@ def test_fused_per_video_calibrations_match(tmp_path):
     first_m = [o.rows[0][3] - o.rows[0][2] * c for o, c in
                zip(got, (0.000833333, 0.0011, 0.0004))]
     assert first_m == pytest.approx([1.0159, 0.5, 0.25])
+
+
+def _aligned_empty(shape, align=64):
+    """An uninitialised uint8 array whose data starts on an ``align``-byte
+    boundary."""
+    n = int(np.prod(shape))
+    raw = np.empty(n + align, np.uint8)
+    off = -raw.ctypes.data % align
+    return raw[off:off + n].reshape(shape)
+
+
+class _RunsAtFetch:
+    """A reference group's result whose program runs only when the result
+    is fetched, after every group's gather."""
+
+    def __init__(self, program, args):
+        self.program, self.args = program, args
+
+    def __array__(self, dtype=None, copy=None):
+        return np.asarray(self.program(*self.args), dtype)
+
+
+@pytest.mark.parametrize("offset", [0, 16])
+def test_pinned_reference_put_keeps_the_bytes_of_its_call(offset):
+    """Under the pin a put keeps the bytes it was given, whether or not the
+    buffer is 64-byte aligned (unpinned, an aligned one is aliased)."""
+    buf = _aligned_empty((4096 + offset,))[offset:]
+    buf[:] = 1
+    dev = jax.device_put(buf)
+    buf[:] = 2
+    assert int(np.asarray(dev).max()) == 1
+
+
+@pytest.mark.parametrize("lengths,seeds,bit_depth,jax_mode", [
+    ((40, 28), (5, 6), 8, None),
+    ((40, 25, 33), (1, 2, 3), 12, "interpret"),
+])
+def test_parity_holds_when_the_next_group_refills_the_reference_buffer(
+        tmp_path, monkeypatch, lengths, seeds, bit_depth, jax_mode):
+    """The state and the order that lost these two parity cases now and
+    then: the reference's pooled staging buffer is 64-byte aligned (a CPU
+    put does not copy it), its groups are pipelined (one video each), and
+    each group's program runs only after the next group's gather has
+    refilled the buffer. The gate must still compare the port with a
+    reference that tracked its own videos."""
+    d = tmp_path / "v"
+    for i, (n, seed) in enumerate(zip(lengths, seeds)):
+        _write(d, f"nova-run-{i + 1}-001", n_frames=n, seed=seed,
+               bit_depth=bit_depth)
+    det = JaxDetectorConfig()
+    band_rows = 2 * jax_band_margin(det.morphology_kernel_size,
+                                    det.gaussian_sigma) + 1
+    key = ("buf", (1, max(lengths), band_rows, 384 * bit_depth // 8))
+    buf = _aligned_empty(key[1])
+    monkeypatch.setattr(jax_fused, "_STAGING_POOL", {key: buf})
+    monkeypatch.setattr(jax_fused, "_puts_are_lazy", lambda: False)
+    program = jax_fused._fused_program
+    monkeypatch.setattr(
+        jax_fused, "_fused_program",
+        lambda *a, **kw: lambda *args: _RunsAtFetch(program(*a, **kw), args))
+    _check_against_both(d, tmp_path, jax_mode=jax_mode, monkeypatch=monkeypatch)
+    assert jax_fused._STAGING_POOL[key] is buf  # every group staged through it
+
+
+def test_port_library_reads_no_staging_buffer_after_releasing_it(tmp_path,
+                                                                 monkeypatch):
+    """The port's side of the same hazard: every staging buffer is
+    overwritten the moment it goes back to the pool, as the next group's
+    gather would, and the library run still equals both references."""
+    release, refilled = port_fused.release_staging, []
+
+    def release_and_refill(buf, event=None):
+        buf.fill_(0xA5)
+        refilled.append(buf.shape)
+        release(buf, event)
+
+    monkeypatch.setattr(port_fused, "release_staging", release_and_refill)
+    d = tmp_path / "v"
+    _write(d, "nova-run-1-001", seed=5, bit_depth=8)
+    _write(d, "nova-run-2-001", n_frames=28, seed=6, bit_depth=8)
+    _check_against_both(d, tmp_path)
+    assert len(refilled) == 2  # one buffer a group, two groups
 
 
 def test_mixed_shapes_one_group_per_shape_in_collection_order(tmp_path):

@@ -28,6 +28,15 @@ from hsip_tpu_torch.io import (  # noqa: E402
 )
 from hsip_tpu_torch.track.config import FileCalibration, VideoSourceConfig  # noqa: E402
 
+from test_torch_library import pin_reference_puts  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _reference_puts_copy(monkeypatch):
+    """The JAX package's library runs here put private copies
+    (``test_torch_library.pin_reference_puts``)."""
+    pin_reference_puts(monkeypatch)
+
 
 @pytest.fixture(scope="module")
 def fig_library(tmp_path_factory):

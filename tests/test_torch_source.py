@@ -27,6 +27,16 @@ from hsip_tpu_torch.io import (  # noqa: E402
 from hsip_tpu_torch.kernels._build import KernelError  # noqa: E402
 from hsip_tpu_torch.track.config import FileCalibration, VideoSourceConfig  # noqa: E402
 
+from test_torch_library import pin_reference_puts  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _reference_puts_copy(monkeypatch):
+    """The JAX package's library runs here put private copies
+    (``test_torch_library.pin_reference_puts``)."""
+    pin_reference_puts(monkeypatch)
+
+
 _LIBRARY = (
     ("nova-run-1-001", (48, 512),
      FlameSpec(x0=30.0, v0_px=8.0, ignition_frame=2, seed=3)),
