@@ -527,20 +527,23 @@ def run_library(video_dir, out_dir, resume=False, mesh=None, **env):
 
     from hsip_tpu_torch.pipeline import process_video_source_library
     from hsip_tpu_torch.track import batch, fused
+    from hsip_tpu_torch.utils import StageTimes
 
     old = env_set(**env)
+    stages = StageTimes()
     try:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):  # calibration warnings
             outs = process_video_source_library(
                 library_source(video_dir, out_dir), verbose=False, resume=resume,
-                mesh=mesh)
+                mesh=mesh, stage_times=stages)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
         env_set(**old)
+    clipped = stages.as_dict().get("count.clipped_groups", 0) > 0
     return (outs, wall, tables_of(out_dir), list(batch.LAST_GROUP_PATHS),
-            fused._LAST_CLIPPED, [dict(t) for t in fused._LAST_PIPELINE_TRACE])
+            clipped, [dict(t) for t in fused._LAST_PIPELINE_TRACE])
 
 
 def run_loop(video_dir, out_dir):

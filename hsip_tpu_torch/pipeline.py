@@ -28,6 +28,7 @@ from .track.scan import track_video
 from .track.tracker import FlameDetector
 from .utils.backend import resolve_device
 from .utils.logging import get_logger
+from .utils.profiling import StageTimes
 from .video import SpatialCalibration
 
 __all__ = ["process_video_file", "process_video_source",
@@ -170,6 +171,7 @@ def process_video_file(
     save_images: Optional[bool] = None,
     write_tables: bool = True,
     device=None,
+    stage_times=None,
 ) -> TrackingOutput:
     """Process one recording: track the flame front and write result tables.
 
@@ -187,6 +189,11 @@ def process_video_file(
     runs only when named (``device="cpu"``). Figures need matplotlib: a
     call that asks for them without it raises ``ModuleNotFoundError``
     before the recording is opened.
+
+    ``stage_times`` (a :class:`~hsip_tpu_torch.utils.StageTimes`) takes
+    this call's stages ``open`` (open and close), ``background`` (frame
+    0's max) and ``write_tables``, and is handed to the tracking function
+    as given, None included, which then adds its own.
     """
     if backend not in BACKENDS:
         raise ValueError(
@@ -194,6 +201,7 @@ def process_video_file(
         )
     dev = resolve_device(device) if backend != "exact" else None
     _require_figure_renderer(config, save_images, write_outputs)
+    stages = StageTimes() if stage_times is None else stage_times
     cihx_file = Path(cihx_file)
     detector_config = detector_config or FlameDetectorConfig()
     file_calibration, file_position_offset = config.get_calibration_for_file(
@@ -208,11 +216,12 @@ def process_video_file(
             f"offset: {file_position_offset} m"
         )
 
-    video = open_video(
-        str(cihx_file),
-        trigger_frame=config.trigger_frame,
-        calibration=SpatialCalibration(scale=file_calibration, units="m"),
-    )
+    with stages.stage("open"):
+        video = open_video(
+            str(cihx_file),
+            trigger_frame=config.trigger_frame,
+            calibration=SpatialCalibration(scale=file_calibration, units="m"),
+        )
     try:
         if verbose:
             d = video.describe()
@@ -228,7 +237,8 @@ def process_video_file(
                 print(f"    Start frame: {cihx['start_frame']}")
                 print(f"    Skip frame: {cihx['skip_frame']}")
 
-        background_scalar = float(np.max(video[0]))
+        with stages.stage("background"):
+            background_scalar = float(np.max(video[0]))
         if verbose:
             print(f"  Background scalar: {background_scalar}")
 
@@ -286,6 +296,7 @@ def process_video_file(
             detection_method=config.detection_method,
             use_frame_diff=config.use_frame_diff,
             device=dev,
+            stage_times=stage_times,
         )
         viz_tracker = None  # tracker whose history feeds the figures
         if backend == "exact":
@@ -341,13 +352,16 @@ def process_video_file(
 
         if write_outputs and write_tables and output_dir is not None \
                 and output.rows:
-            _write_ddt_split_tables(output, output_dir, cihx_file.stem, verbose)
+            with stages.stage("write_tables"):
+                _write_ddt_split_tables(output, output_dir, cihx_file.stem,
+                                        verbose)
             if verbose:
                 print("\nResults summary:")
                 print(f"  Total detections: {len(output.rows)}")
         return output
     finally:
-        video.close()
+        with stages.stage("open"):
+            video.close()
 
 
 def _track_video_exact(
@@ -667,6 +681,7 @@ def process_video_source(
     resume: bool = False,
     failure_cache: Optional[dict] = None,
     device=None,
+    stage_times=None,
 ) -> List[TrackingOutput]:
     """Process every ``*.cihx`` under a source's video path, each through
     :func:`process_video_file` with ``backend`` on ``device`` (``None``
@@ -692,6 +707,9 @@ def process_video_source(
     is a CUDA error that torch reports later (:func:`_is_device_failure`).
     Figures without matplotlib raise ``ModuleNotFoundError`` before any
     file is touched (:func:`_require_figure_renderer`).
+
+    ``stage_times`` takes the stages ``discover`` and ``ledger`` and is
+    handed to :func:`process_video_file` as given, None included.
     """
     import time as _time
 
@@ -701,12 +719,17 @@ def process_video_source(
         )
     dev = resolve_device(device) if backend != "exact" else None
     _require_figure_renderer(config)
+    stages = StageTimes() if stage_times is None else stage_times
     is_root = processor is None or processor.is_root
-    cihx_files = _discover_source_files(config, processor, verbose, is_root)
+    with stages.stage("discover"):
+        cihx_files = _discover_source_files(config, processor, verbose,
+                                            is_root)
     if cihx_files is None:
         return []  # globally nothing — every rank takes this branch
 
-    ledger = _SourceLedger(config, detector_config, backend, processor, resume)
+    with stages.stage("ledger"):
+        ledger = _SourceLedger(config, detector_config, backend, processor,
+                               resume)
 
     def _announce_skip(f):
         if verbose and is_root:
@@ -714,7 +737,9 @@ def process_video_source(
 
     outputs = []
     try:
-        for cihx_file in ledger.filter_pending(cihx_files, _announce_skip):
+        with stages.stage("ledger"):
+            pending = ledger.filter_pending(cihx_files, _announce_skip)
+        for cihx_file in pending:
             if _skip_known_failure(failure_cache, cihx_file):
                 continue
             fingerprint = _pre_attempt_fingerprint(failure_cache, cihx_file)
@@ -727,6 +752,7 @@ def process_video_source(
                     backend=backend,
                     verbose=verbose and is_root,
                     device=dev,
+                    stage_times=stage_times,
                 )
             except Exception as exc:
                 if _is_device_failure(exc, dev):
@@ -750,11 +776,13 @@ def process_video_source(
                 output.break_reason, wall,
             )
             outputs.append(output)
-            ledger.record(cihx_file, output, wall)
+            with stages.stage("ledger"):
+                ledger.record(cihx_file, output, wall)
     finally:
         # Always write the summary and reach the rank barrier (a raise here
         # would otherwise hang the other ranks in finish()'s barrier).
-        ledger.finish()
+        with stages.stage("ledger"):
+            ledger.finish()
     return outputs
 
 
@@ -768,6 +796,7 @@ def process_video_source_library(
     mesh=None,
     failure_cache: Optional[dict] = None,
     device=None,
+    stage_times=None,
 ) -> List[TrackingOutput]:
     """Library mode: track EVERY recording of a source with batched scans
     on ``device`` (``None`` means ``cuda``; without a card the call raises).
@@ -798,6 +827,11 @@ def process_video_source_library(
     mesh's slots, each slot tracking its own on its own device (tables
     byte-identical to the unsharded run); ``device`` then defaults to the
     mesh's first slot and serves the figure replay.
+
+    ``stage_times`` takes the stages ``discover``, ``ledger``, ``open``
+    (opening the recordings, and closing them) and ``write_tables``, and
+    is handed to the tracking function and the figure replay as given,
+    None included.
     """
     import time as _time
 
@@ -807,22 +841,24 @@ def process_video_source_library(
         device = mesh.devices.flat[0]
     dev = resolve_device(device)
     _require_figure_renderer(config)
+    stages = StageTimes() if stage_times is None else stage_times
     detector_config = detector_config or FlameDetectorConfig()
     is_root = processor is None or processor.is_root
-    cihx_files = _discover_source_files(
-        config, processor, verbose, is_root, mode_banner=" (library mode)"
-    )
+    with stages.stage("discover"):
+        cihx_files = _discover_source_files(
+            config, processor, verbose, is_root, mode_banner=" (library mode)"
+        )
     if cihx_files is None:
         return []  # globally nothing — every rank takes this branch
-
-    ledger = _SourceLedger(config, detector_config, "library", processor,
-                           resume)
 
     def _announce_skip(f):
         if verbose and is_root:
             print(f"  Skipping {f.name} (already complete)")
 
-    cihx_files = ledger.filter_pending(cihx_files, _announce_skip)
+    with stages.stage("ledger"):
+        ledger = _SourceLedger(config, detector_config, "library", processor,
+                               resume)
+        cihx_files = ledger.filter_pending(cihx_files, _announce_skip)
 
     # Open with the collection layer's warn-and-skip batch semantics: one
     # corrupt recording must not abort the library run.
@@ -838,9 +874,10 @@ def process_video_source_library(
             fingerprint = _pre_attempt_fingerprint(failure_cache, f)
             _warn_unmatched_calibration(config, f.name)
             try:
-                videos.append(
-                    PhotonVideo(str(f), trigger_frame=config.trigger_frame)
-                )
+                with stages.stage("open"):
+                    videos.append(
+                        PhotonVideo(str(f), trigger_frame=config.trigger_frame)
+                    )
                 if failure_cache is not None:
                     failure_cache.pop(str(f), None)
             except Exception as exc:
@@ -861,6 +898,7 @@ def process_video_source_library(
                     chunk_size=chunk_size,
                     mesh=mesh,
                     device=dev,
+                    stage_times=stage_times,
                 )
                 wall_each = (_time.perf_counter() - t0) / max(1, len(videos))
 
@@ -884,10 +922,13 @@ def process_video_source_library(
                                 print(f"  *** DDT DETECTED at frame "
                                       f"{output.tracker.ddt_frame} ***")
                         if output_dir is not None and output.rows:
-                            _write_ddt_split_tables(
-                                output, output_dir, stem, verbose and is_root
-                            )
-                        ledger.record(video.filepath, output, wall_each)
+                            with stages.stage("write_tables"):
+                                _write_ddt_split_tables(
+                                    output, output_dir, stem,
+                                    verbose and is_root,
+                                )
+                        with stages.stage("ledger"):
+                            ledger.record(video.filepath, output, wall_each)
                     except Exception as exc:
                         print(f"Warning: Could not write results for "
                               f"{video.filepath.name}: {exc}")
@@ -904,6 +945,7 @@ def process_video_source_library(
                                 video.filepath, config, detector_config,
                                 backend="gpu", verbose=False,
                                 write_tables=False, device=dev,
+                                stage_times=stage_times,
                             )
                             if verbose and is_root:
                                 print(f"  Figures: {video.filepath.name}")
@@ -915,9 +957,11 @@ def process_video_source_library(
                             _log.warning("failed figures for %s: %s",
                                          video.filepath.name, exc)
             finally:
-                collection.close_all()
+                with stages.stage("open"):
+                    collection.close_all()
     finally:
         # Always write the summary and reach the rank barrier — otherwise a
         # failure on one rank leaves the others hung in finish()'s barrier.
-        ledger.finish()
+        with stages.stage("ledger"):
+            ledger.finish()
     return outputs

@@ -151,9 +151,6 @@ def _copy_stream(dev: torch.device):
     return stream
 
 
-# Introspection for tests: did the last fused call copy a clipped payload?
-_LAST_CLIPPED = False
-
 # Introspection for tests/tools: per-group pipeline timeline of the last
 # fused call. One dict per group, host timestamps (perf_counter):
 # gather_start_t / gather_end_t around the group's gathers, dispatch_t
@@ -366,10 +363,15 @@ def track_uniform_videos_fused(
     scan hard-gates empty rows.
 
     ``stage_times`` stages: ``read_gather`` (and ``counts_host`` on the
-    two-pass degrade), ``h2d``, ``device_dispatch``, ``d2h``, ``tables``.
-    Host time under ``h2d`` and ``device_dispatch`` is only the enqueue,
-    plus, under ``h2d``, the wait for the group's copy event; the wait for
-    the device lands in ``d2h``.
+    two-pass degrade) in the gather threads; on the calling thread
+    ``pool_take`` (the group's staging buffer), ``gather_wait`` (the wait
+    for the group's gathers, with their pools), ``group_meta`` (the scan
+    metadata and the clip's ranges), ``h2d``, ``device_dispatch``, ``d2h``,
+    ``tables``. Host time under ``h2d`` and ``device_dispatch`` is only the
+    enqueue, plus, under ``h2d``, the wait for the group's copy event; the
+    wait for the device lands in ``d2h``. Counters: ``frames_staged`` (the
+    frames of every group), ``frames_copied`` (the rows copied to the
+    device after the clip) and ``clipped_groups``.
     """
     from ..kernels.cuda_preprocess import cuda_band_profiles
     from ..kernels.preprocess import band_folds, band_margin, reflect_indices
@@ -450,7 +452,8 @@ def track_uniform_videos_fused(
         # length may hold stale bytes, which is safe — the scan hard-gates
         # every masked step on `empty`, so masked profile values are never
         # consumed.
-        big_t = take_staging((Vg, n_max, B, rnb), pinned=on_card)
+        with stage_times.stage("pool_take"):
+            big_t = take_staging((Vg, n_max, B, rnb), pinned=on_card)
         big = big_t.numpy()
         bgs = np.zeros(Vg, np.float32)
         count_futs = [None] * Vg
@@ -479,14 +482,19 @@ def track_uniform_videos_fused(
                     )
                     read_band(0, n, rows, out=big[i, :n])
 
-        with ThreadPoolExecutor(max_workers=1) as count_pool, \
+        # The gathers run in worker threads, whose ranges a profiler does
+        # not keep: the main thread's wait (pools and all) is the span.
+        with stage_times.stage("gather_wait"), \
+                ThreadPoolExecutor(max_workers=1) as count_pool, \
                 ThreadPoolExecutor(
                     max_workers=_gather_workers(Vg)) as gather_pool:
             for fut in [gather_pool.submit(_gather_one, i) for i in range(Vg)]:
                 fut.result()
-            trace["gather_end_t"] = time.perf_counter()
+        trace["gather_end_t"] = time.perf_counter()
 
-            # --- host-side scan metadata (resolves the count futures) ---
+        # --- host-side scan metadata (resolves the count futures) and the
+        # clip's ranges ---
+        with stage_times.stage("group_meta"):
             fidx = np.zeros((Vg, n_max), np.int32)
             empty = np.ones((Vg, n_max), bool)
             has_prior = np.ones((Vg, n_max), bool)
@@ -523,41 +531,43 @@ def track_uniform_videos_fused(
                 ).max_displacement_px
                 profiles_meta.append(_FusedMeta(fidx[i, :n], w))
 
-        # --- empty-range clip: copy only each video's
-        # [first_nonempty-1, last] range (the -1 keeps the first signal
-        # frame's differencing prior in-range) and scatter the scan outputs
-        # back to full length on the host. Rows outside the range are empty
-        # by definition — the scan hard-gates them, so outputs are
-        # bit-identical.
-        lengths = [len(v) for v in g_videos]
-        clip = _clip_ranges(empty, lengths, n_max)
-        if clip is not None:
-            lo, L_each, L = clip
-            fidx_s = np.zeros((Vg, L), np.int32)
-            fidx_s[:] = n_max + np.arange(L, dtype=np.int32)
-            empty_s = np.ones((Vg, L), bool)
-            prior_s = np.ones((Vg, L), bool)
-            for i in range(Vg):
-                li = L_each[i]
-                if li == 0:
-                    continue
-                fidx_s[i, :li] = fidx[i, lo[i]:lo[i] + li]
-                fidx_s[i, li:] = fidx_s[i, li - 1] + np.arange(
-                    1, L - li + 1, dtype=np.int32
-                )
-                empty_s[i, :li] = empty[i, lo[i]:lo[i] + li]
-                prior_s[i, :li] = has_prior[i, lo[i]:lo[i] + li]
-                if lo[i] > 0 and (method == "combined" or use_frame_diff):
-                    # The clip's row 0 is an empty frame whose profile is
-                    # never read; mark it prior-less like row 0 of a full
-                    # run (the program derives the actual differencing
-                    # prior from array position).
-                    prior_s[i, 0] = False
-        else:
-            lo, L_each, L = np.zeros(Vg, np.int64), np.asarray(lengths), n_max
-            fidx_s, empty_s, prior_s = fidx, empty, has_prior
-        global _LAST_CLIPPED
-        _LAST_CLIPPED = _LAST_CLIPPED or clip is not None
+            # --- empty-range clip: copy only each video's
+            # [first_nonempty-1, last] range (the -1 keeps the first
+            # signal frame's differencing prior in-range) and scatter the
+            # scan outputs back to full length on the host. Rows outside
+            # the range are empty by definition — the scan hard-gates
+            # them, so outputs are bit-identical.
+            lengths = [len(v) for v in g_videos]
+            clip = _clip_ranges(empty, lengths, n_max)
+            if clip is not None:
+                lo, L_each, L = clip
+                fidx_s = np.zeros((Vg, L), np.int32)
+                fidx_s[:] = n_max + np.arange(L, dtype=np.int32)
+                empty_s = np.ones((Vg, L), bool)
+                prior_s = np.ones((Vg, L), bool)
+                for i in range(Vg):
+                    li = L_each[i]
+                    if li == 0:
+                        continue
+                    fidx_s[i, :li] = fidx[i, lo[i]:lo[i] + li]
+                    fidx_s[i, li:] = fidx_s[i, li - 1] + np.arange(
+                        1, L - li + 1, dtype=np.int32
+                    )
+                    empty_s[i, :li] = empty[i, lo[i]:lo[i] + li]
+                    prior_s[i, :li] = has_prior[i, lo[i]:lo[i] + li]
+                    if lo[i] > 0 and (method == "combined" or use_frame_diff):
+                        # The clip's row 0 is an empty frame whose profile
+                        # is never read; mark it prior-less like row 0 of a
+                        # full run (the program derives the actual
+                        # differencing prior from array position).
+                        prior_s[i, 0] = False
+            else:
+                lo, L_each = np.zeros(Vg, np.int64), np.asarray(lengths)
+                L = n_max
+                fidx_s, empty_s, prior_s = fidx, empty, has_prior
+        stage_times.count("frames_staged", sum(lengths))
+        stage_times.count("frames_copied", int(np.sum(L_each)))
+        stage_times.count("clipped_groups", int(clip is not None))
 
         # --- transfer: each video's range, from its pinned slice, on the
         # copy stream; the event after the last copy gates the compute
@@ -663,8 +673,6 @@ def track_uniform_videos_fused(
         rec["trace"]["finals_ready_t"] = time.perf_counter()
         return outs
 
-    global _LAST_CLIPPED
-    _LAST_CLIPPED = False
     _LAST_PIPELINE_TRACE.clear()
 
     slot_groups = []  # per slot: its pipelined groups of video indices

@@ -67,25 +67,31 @@ class MapProfiles(FrameProfiles):
     staging_route: str = "decoded"
 
 
-def _stage(host: np.ndarray, device: torch.device) -> torch.Tensor:
+def _stage(host: np.ndarray, device: torch.device,
+           stage_times: StageTimes) -> torch.Tensor:
     """A host array on ``device``: through a pinned buffer of the staging
     pool (shared with the library path, :mod:`.fused`) and an asynchronous
     copy on a CUDA device, a plain ``from_numpy`` on the CPU. The buffer
     goes back to the pool with the copy's event, so it is filled again only
-    after this copy has read it."""
+    after this copy has read it. The host copy that staging makes (into
+    the pinned buffer; on the CPU only where ``host`` is read-only or not
+    contiguous) is timed as the stage ``pin_copy``."""
     if device.type == "cuda":
         pinned = take_staging(
             host.shape, torch.from_numpy(np.empty(0, dtype=host.dtype)).dtype
         )
-        pinned.numpy()[...] = host
+        with stage_times.stage("pin_copy"):
+            pinned.numpy()[...] = host
         staged = pinned.to(device, non_blocking=True)
         copied = torch.cuda.Event()
         copied.record(torch.cuda.current_stream(device))
         release_staging(pinned, copied)
         return staged
-    if not host.flags.writeable:  # memmap views are read-only
-        host = host.copy()
-    return torch.from_numpy(np.ascontiguousarray(host))
+    with stage_times.stage("pin_copy"):
+        if not host.flags.writeable:  # memmap views are read-only
+            host = host.copy()
+        host = np.ascontiguousarray(host)
+    return torch.from_numpy(host)
 
 
 def _runs(idxs: np.ndarray):
@@ -225,7 +231,7 @@ def compute_profiles_batched(
                             lambda a, b: read_band(a, b, band_rows), needed
                         ))
                 with stage_times.stage("h2d"):
-                    staged = _stage(host, dev)
+                    staged = _stage(host, dev, stage_times)
                 with stage_times.stage("device_dispatch"):
                     sob, grad, intens, rawc = packed_band_profiles(
                         staged, bg32, prior, thr32,
@@ -239,7 +245,7 @@ def compute_profiles_batched(
                         needed,
                     )
                 with stage_times.stage("h2d"):
-                    staged = _stage(host, dev)
+                    staged = _stage(host, dev, stage_times)
                 with stage_times.stage("device_dispatch"):
                     if read_packed is not None:
                         sob, grad, intens, rawc, counts = packed_centerline_profiles(
@@ -403,7 +409,8 @@ def _compute_profiles_sharded(
             shards = [(dev, a, b) for dev, (a, b)
                       in zip(slots.slots, slots.bounds(idxs.size)) if b > a]
             with stage_times.stage("h2d"):
-                staged = [_stage(host[a:b], dev) for dev, a, b in shards]
+                staged = [_stage(host[a:b], dev, stage_times)
+                          for dev, a, b in shards]
             counts = [cnt[a:b] for _, a, b in shards]
             with stage_times.stage("device_dispatch"):
                 shards = shard_packed_band_profiles(

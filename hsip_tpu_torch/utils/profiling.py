@@ -26,7 +26,8 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 class StageTimes:
-    """Thread-safe accumulating wall-clock attribution for pipeline stages.
+    """Thread-safe accumulating wall-clock attribution for pipeline stages,
+    and counters beside them.
 
     The map phase free-runs (dispatch without blocking), so a stage's
     accumulated time is the HOST wall-clock spent inside it — device work
@@ -35,23 +36,36 @@ class StageTimes:
     CONCURRENT threads (e.g. the library map pool) can overlap, so the sum
     of stages may exceed end-to-end wall-clock; each stage remains a true
     measure of where that work's time went.
+
+    While a ``torch.profiler`` records the process, each stage also opens
+    the range ``stage.<name>``, so a trace names what the host was doing
+    on the device's clock. The profiler keeps ranges of the thread that
+    started it; a stage entered in a worker thread is timed but leaves no
+    range. With no profiler recording, a stage costs one check more.
     """
 
     def __init__(self) -> None:
         self._t: Dict[str, float] = {}
+        self._n: Dict[str, int] = {}
         self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
         try:
-            yield
+            with _profiler_range(f"stage.{name}"):
+                yield
         finally:
             self.add(name, time.perf_counter() - t0)
 
     def add(self, name: str, seconds: float) -> None:
         with self._lock:
             self._t[name] = self._t.get(name, 0.0) + seconds
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the counter ``name``."""
+        with self._lock:
+            self._n[name] = self._n.get(name, 0) + int(n)
 
     def wrap(self, name: str, fn):
         """A callable timing each invocation of ``fn`` under ``name``."""
@@ -63,8 +77,22 @@ class StageTimes:
         return timed
 
     def as_dict(self, ndigits: int = 4) -> Dict[str, float]:
+        """Each stage's seconds, rounded to ``ndigits``, then each counter
+        under ``count.<name>``."""
         with self._lock:
-            return {k: round(v, ndigits) for k, v in sorted(self._t.items())}
+            out = {k: round(v, ndigits) for k, v in sorted(self._t.items())}
+            out.update((f"count.{k}", v) for k, v in sorted(self._n.items()))
+            return out
+
+
+def _profiler_range(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler records
+    this process, else a context that does nothing."""
+    import torch
+
+    if not torch.autograd._profiler_enabled():
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager

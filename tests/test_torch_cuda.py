@@ -322,14 +322,14 @@ def test_golden_table_on_the_card(tmp_path, backend):
     assert (cuda_tracking_scan.launches > scans) == (backend == "device")
 
 
-def _library_outputs(directory, device, sc=None, mesh=None):
+def _library_outputs(directory, device, sc=None, mesh=None, stage_times=None):
     import hsip_tpu_torch
     from hsip_tpu_torch.track import batch
 
     with hsip_tpu_torch.open_collection(str(directory)) as coll:
         outs = batch.track_collection_device(coll, FlameDetectorConfig(),
                                              source_config=sc, device=device,
-                                             mesh=mesh)
+                                             mesh=mesh, stage_times=stage_times)
     return outs, list(batch.LAST_GROUP_PATHS)
 
 
@@ -359,20 +359,25 @@ def test_fused_library_on_the_card_equals_the_cpu_run(tmp_path, monkeypatch,
     clip on and off, five times over on one pool: a pinned buffer that is
     overwritten before its copy has read it shows up as a differing run."""
     from hsip_tpu_torch.track import fused
+    from hsip_tpu_torch.utils import StageTimes
 
     dev = _cuda()
     _write_library(tmp_path / "v")
     monkeypatch.setenv("HSIP_FUSED_GROUPS", groups)
     monkeypatch.setenv("HSIP_CLIP_EMPTY", clip)
-    want, paths = _library_outputs(tmp_path / "v", "cpu")
+    cpu_times = StageTimes()
+    want, paths = _library_outputs(tmp_path / "v", "cpu", stage_times=cpu_times)
     assert paths == ["fused"]
-    cpu_clipped = fused._LAST_CLIPPED
-    assert cpu_clipped == (clip != "off" and groups == "4")
+    cpu_counts = {k: v for k, v in cpu_times.as_dict().items()
+                  if k.startswith("count.")}
+    assert (cpu_counts["count.clipped_groups"] > 0) == (clip != "off" and groups == "4")
     band0, scan0 = cuda_band_profiles.launches, cuda_tracking_scan.launches
     for rep in range(5):
-        got, paths = _library_outputs(tmp_path / "v", dev)
+        times = StageTimes()
+        got, paths = _library_outputs(tmp_path / "v", dev, stage_times=times)
         assert paths == ["fused"]
-        assert fused._LAST_CLIPPED == cpu_clipped
+        assert {k: v for k, v in times.as_dict().items()
+                if k.startswith("count.")} == cpu_counts
         assert len(fused._LAST_PIPELINE_TRACE) == int(groups)
         for g, w in zip(got, want):
             assert g.merged_rows() == w.merged_rows(), rep

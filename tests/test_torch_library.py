@@ -436,18 +436,31 @@ def _dark_library(d):
                                   record_rate=100_000, bit_depth=12))
 
 
+def _counts(times):
+    """The counters of a StageTimes, by name."""
+    return {k[len("count."):]: v for k, v in times.as_dict().items()
+            if k.startswith("count.")}
+
+
 def test_clip_skips_dark_ranges_bit_identically(tmp_path, monkeypatch):
     d = tmp_path / "v"
     _dark_library(d)
     monkeypatch.setenv("HSIP_FUSED_GROUPS", "1")
-    clipped = _port_library(d)
+    times = StageTimes()
+    clipped = _port_library(d, stage_times=times)
     assert port_batch.LAST_GROUP_PATHS == ["fused"]
-    assert port_fused._LAST_CLIPPED, "a dark-preamble batch must take the clip"
+    counts = _counts(times)
+    assert counts["clipped_groups"] == 1, "a dark-preamble batch must take the clip"
+    assert counts["frames_staged"] == 4 * 64
+    assert counts["frames_copied"] < counts["frames_staged"]
     assert not clipped[2].rows  # the all-dark video records nothing
     assert clipped[3].rows and clipped[3].empty_frame_count >= 30
     monkeypatch.setenv("HSIP_CLIP_EMPTY", "off")
-    full = _port_library(d)
-    assert not port_fused._LAST_CLIPPED
+    times = StageTimes()
+    full = _port_library(d, stage_times=times)
+    counts = _counts(times)
+    assert counts["clipped_groups"] == 0
+    assert counts["frames_copied"] == counts["frames_staged"] == 4 * 64
     _assert_same(clipped, full)
     assert (_tables(port_pipeline, clipped, tmp_path / "on")
             == _tables(port_pipeline, full, tmp_path / "off"))
@@ -457,16 +470,18 @@ def test_clip_skips_dark_ranges_bit_identically(tmp_path, monkeypatch):
     # Grouped (G=4: one video a group): the preamble groups clip, each
     # alone, and the tables are the same again.
     monkeypatch.setenv("HSIP_FUSED_GROUPS", "4")
-    _assert_same(_port_library(d), full)
-    assert port_fused._LAST_CLIPPED
+    times = StageTimes()
+    _assert_same(_port_library(d, stage_times=times), full)
+    assert _counts(times)["clipped_groups"] > 0
 
 
 def test_clip_stands_down_on_a_dense_batch(tmp_path):
     d = tmp_path / "v"
     _write(d, "nova-run-1-001", seed=60)
-    outs = _port_library(d)
+    times = StageTimes()
+    outs = _port_library(d, stage_times=times)
     assert outs[0].rows and port_batch.LAST_GROUP_PATHS == ["fused"]
-    assert not port_fused._LAST_CLIPPED
+    assert _counts(times)["clipped_groups"] == 0
 
 
 @pytest.mark.parametrize("groups", ["1", "2", "4", "3"])
