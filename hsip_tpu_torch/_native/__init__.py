@@ -141,6 +141,17 @@ class NativeDecoder:
             # callers fall back to the separate count_above*/gather_rows
             # two-pass staging.
             self._has_gather_count = False
+        try:
+            lib.count_above_scalar.argtypes = [
+                u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+                ctypes.c_float, ctypes.c_float, i32p,
+            ]
+            lib.native_count_path.restype = ctypes.c_char_p
+            self._count_path = lib.native_count_path().decode()
+        except AttributeError:
+            # Stale cached .so predating the integer count: its per-pixel
+            # float loop is no vector path.
+            self._count_path = None
         lib.native_num_threads.restype = ctypes.c_int
         lib.native_set_num_threads.argtypes = [ctypes.c_int]
         f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
@@ -300,6 +311,45 @@ class NativeDecoder:
         counts = np.empty(n_frames, dtype=np.int32)
         self._lib.count_above8(
             packed, n_frames, frame_nbytes,
+            float(background), float(threshold), counts,
+        )
+        return counts
+
+    @property
+    def count_path(self) -> str:
+        """The path that counts 12-bit pixels in this build: ``"avx512"``,
+        ``"avx2"`` or ``"scalar"``, from the instruction set the library
+        was compiled for. Every other depth takes the scalar integer
+        loop."""
+        return self._count_path or "scalar"
+
+    def vector_count(self, bit_depth: int) -> bool:
+        """True when the count passes of ``bit_depth`` run a vector path."""
+        return bit_depth == 12 and self.count_path != "scalar"
+
+    def count_above_scalar(
+        self,
+        packed: np.ndarray,
+        frame_nbytes: int,
+        bit_depth: int,
+        background: float,
+        threshold: float,
+    ) -> np.ndarray:
+        """:meth:`count_above_12bit` and its 8-, 10- and 16-bit twins by
+        the scalar integer loop alone: what the vector path is held
+        against."""
+        if self._count_path is None:
+            raise RuntimeError("native library lacks count_above_scalar "
+                               "(stale build)")
+        group = {8: 1, 10: 5, 12: 3, 16: 2}[bit_depth]
+        packed = np.ascontiguousarray(packed, dtype=np.uint8).reshape(-1)
+        if frame_nbytes % group or packed.size % frame_nbytes:
+            raise ValueError(
+                f"packed size must be whole {bit_depth}-bit frames")
+        n_frames = packed.size // frame_nbytes
+        counts = np.empty(n_frames, dtype=np.int32)
+        self._lib.count_above_scalar(
+            packed, n_frames, frame_nbytes, bit_depth,
             float(background), float(threshold), counts,
         )
         return counts

@@ -22,6 +22,10 @@
 #include <omp.h>
 #endif
 
+#ifdef __AVX2__
+#include <immintrin.h>
+#endif
+
 extern "C" {
 
 // Unpack 12-bit MSB-first packed bytes into uint16 pixels.
@@ -96,6 +100,8 @@ void unpack12_bgsub_f32(const uint8_t* __restrict src, float* __restrict dst,
     }
 }
 
+}  // extern "C"
+
 // Payload-scan thread override. The cold-cache scans are page-fault-bound:
 // threads block in fault I/O, so the useful count is an I/O-concurrency
 // knob, not a core count. Foreign threads (Python thread pools) each carry
@@ -111,189 +117,258 @@ static inline int scan_threads() {
 #endif
 }
 
-// Fused decode + background-subtract + above-threshold COUNT per frame,
-// without materializing pixels: one pass over the packed payload. Serves
-// the empty-frame test so only centerline-band bytes ever cross PCIe.
-// counts[f] = #pixels in frame f with max(pixel - background, 0) > threshold.
-void count_above12(const uint8_t* __restrict src, int64_t n_frames,
-                   int64_t frame_nbytes, float background, float threshold,
-                   int32_t* __restrict counts) {
-    const int64_t pairs_per_frame = frame_nbytes / 3;
-#pragma omp parallel for schedule(static) num_threads(scan_threads())
-    for (int64_t f = 0; f < n_frames; ++f) {
-        const uint8_t* s = src + f * frame_nbytes;
-        int32_t c = 0;
-        for (int64_t i = 0; i < pairs_per_frame; ++i) {
-            const uint8_t* b = s + 3 * i;
-            float p0 = (float)((b[0] << 4) | (b[1] >> 4)) - background;
-            float p1 = (float)(((b[1] & 0x0F) << 8) | b[2]) - background;
-            if (p0 < 0.0f) p0 = 0.0f;
-            if (p1 < 0.0f) p1 = 0.0f;
-            c += (p0 > threshold) + (p1 > threshold);
-        }
-        counts[f] = c;
-    }
-}
-
-// 10-bit variant of the fused count (5 bytes -> 4 px).
-void count_above10(const uint8_t* __restrict src, int64_t n_frames,
-                   int64_t frame_nbytes, float background, float threshold,
-                   int32_t* __restrict counts) {
-    const int64_t quads_per_frame = frame_nbytes / 5;
-#pragma omp parallel for schedule(static) num_threads(scan_threads())
-    for (int64_t f = 0; f < n_frames; ++f) {
-        const uint8_t* s = src + f * frame_nbytes;
-        int32_t c = 0;
-        for (int64_t i = 0; i < quads_per_frame; ++i) {
-            const uint8_t* b = s + 5 * i;
-            uint16_t p[4] = {
-                (uint16_t)((b[0] << 2) | (b[1] >> 6)),
-                (uint16_t)(((b[1] & 0x3F) << 4) | (b[2] >> 4)),
-                (uint16_t)(((b[2] & 0x0F) << 6) | (b[3] >> 2)),
-                (uint16_t)(((b[3] & 0x03) << 8) | b[4]),
-            };
-            for (int j = 0; j < 4; ++j) {
-                float v = (float)p[j] - background;
-                if (v < 0.0f) v = 0.0f;
-                c += (v > threshold);
-            }
-        }
-        counts[f] = c;
-    }
-}
-
-// 16-bit little-endian variant of the fused count.
-void count_above16(const uint8_t* __restrict src, int64_t n_frames,
-                   int64_t frame_nbytes, float background, float threshold,
-                   int32_t* __restrict counts) {
-    const int64_t px_per_frame = frame_nbytes / 2;
-#pragma omp parallel for schedule(static) num_threads(scan_threads())
-    for (int64_t f = 0; f < n_frames; ++f) {
-        const uint8_t* s = src + f * frame_nbytes;
-        int32_t c = 0;
-        for (int64_t i = 0; i < px_per_frame; ++i) {
-            uint16_t p = (uint16_t)(s[2 * i] | (s[2 * i + 1] << 8));
-            float v = (float)p - background;
-            if (v < 0.0f) v = 0.0f;
-            c += (v > threshold);
-        }
-        counts[f] = c;
-    }
-}
-
-// 8-bit variant of the fused count: payload bytes ARE the pixels.
-void count_above8(const uint8_t* __restrict src, int64_t n_frames,
-                  int64_t frame_nbytes, float background, float threshold,
-                  int32_t* __restrict counts) {
-#pragma omp parallel for schedule(static) num_threads(scan_threads())
-    for (int64_t f = 0; f < n_frames; ++f) {
-        const uint8_t* s = src + f * frame_nbytes;
-        int32_t c = 0;
-        for (int64_t i = 0; i < frame_nbytes; ++i) {
-            float v = (float)s[i] - background;
-            if (v < 0.0f) v = 0.0f;
-            c += (v > threshold);
-        }
-        counts[f] = c;
-    }
-}
-
-// ---- Fused gather + count: ONE pass over the packed payload ------------
+// ---- The above-noise count: the empty-frame test ----------------------
 //
-// Per frame, compute the above-noise pixel count over the WHOLE frame
-// (the empty-frame test, reference process_videos.py:743-763) AND copy the
-// selected band rows — so host staging touches the payload's DRAM once
-// instead of twice (count_above* then gather_rows). The row copies run
-// right after the frame's count pass while its bytes are still cache-hot.
-// counts[f] = #pixels with max(pixel - background, 0) > threshold.
+// A pixel counts when max((float)p - background, 0) > threshold in
+// float32 (reference process_videos.py:743-763). For an integer code p in
+// [0, 2^bits) that rule is monotone in p, since float rounding is, so it
+// equals p >= p_min: the rule is decided once a call, over every code,
+// and each pixel costs one integer compare. That makes the 12-bit count a
+// vector unpack-and-compare, chosen by the instruction set the library is
+// built for: AVX-512 VBMI (48 packed bytes -> 32 pixels a step), AVX2
+// (24 -> 16), else the scalar integer loop, which also takes each frame's
+// tail. The counts are those of the float rule, bit for bit.
 
-#define FUSED_GATHER_COUNT(NAME, COUNT_FRAME)                                \
-void NAME(const uint8_t* __restrict src, int64_t n_frames,                   \
-          int64_t frame_nbytes, const int64_t* __restrict row_offsets,       \
-          int64_t n_rows, int64_t row_nbytes, float background,              \
-          float threshold, uint8_t* __restrict dst,                          \
-          int32_t* __restrict counts) {                                      \
-    _Pragma("omp parallel for schedule(static) num_threads(scan_threads())") \
-    for (int64_t f = 0; f < n_frames; ++f) {                                 \
-        const uint8_t* s = src + f * frame_nbytes;                           \
-        counts[f] = COUNT_FRAME(s, frame_nbytes, background, threshold);     \
-        uint8_t* d = dst + f * n_rows * row_nbytes;                          \
-        for (int64_t r = 0; r < n_rows; ++r) {                               \
-            const uint8_t* sr = s + row_offsets[r];                          \
-            uint8_t* dr = d + r * row_nbytes;                                \
-            for (int64_t i = 0; i < row_nbytes; ++i) dr[i] = sr[i];          \
-        }                                                                    \
-    }                                                                        \
+static inline bool counts_f32(float p, float background, float threshold) {
+    float v = p - background;
+    if (v < 0.0f) v = 0.0f;
+    return v > threshold;
 }
 
-static inline int32_t count_frame12(const uint8_t* __restrict s,
-                                    int64_t frame_nbytes, float background,
-                                    float threshold) {
-    const int64_t pairs = frame_nbytes / 3;
+// The least code that counts (2^bits when none does), from the float rule
+// itself over every code — NaN, a negative threshold and a background
+// above the largest code need no case of their own. -1 when the rule is
+// not monotone over the codes (IEEE arithmetic rules it out; the caller
+// then keeps the float rule per pixel).
+static int32_t least_counting_code(int bits, float background,
+                                   float threshold) {
+    const int32_t n = 1 << bits;
+    int32_t p_min = n;
+    for (int32_t p = 0; p < n; ++p) {
+        const bool c = counts_f32((float)p, background, threshold);
+        if (c && p_min == n) p_min = p;
+        if (!c && p_min != n) return -1;
+    }
+    return p_min;
+}
+
+// Sum of counts(p) over the pixels of one packed frame; bytes past the
+// last whole pixel group are not pixels.
+template <int BITS, class Counts>
+static inline int32_t count_pixels(const uint8_t* __restrict s,
+                                   int64_t nbytes, Counts counts) {
     int32_t c = 0;
-    for (int64_t i = 0; i < pairs; ++i) {
-        const uint8_t* b = s + 3 * i;
-        float p0 = (float)((b[0] << 4) | (b[1] >> 4)) - background;
-        float p1 = (float)(((b[1] & 0x0F) << 8) | b[2]) - background;
-        if (p0 < 0.0f) p0 = 0.0f;
-        if (p1 < 0.0f) p1 = 0.0f;
-        c += (p0 > threshold) + (p1 > threshold);
+    if (BITS == 12) {
+        for (int64_t i = 0; i < nbytes / 3; ++i) {
+            const uint8_t* b = s + 3 * i;
+            c += counts((b[0] << 4) | (b[1] >> 4));
+            c += counts(((b[1] & 0x0F) << 8) | b[2]);
+        }
+    } else if (BITS == 10) {
+        for (int64_t i = 0; i < nbytes / 5; ++i) {
+            const uint8_t* b = s + 5 * i;
+            c += counts((b[0] << 2) | (b[1] >> 6));
+            c += counts(((b[1] & 0x3F) << 4) | (b[2] >> 4));
+            c += counts(((b[2] & 0x0F) << 6) | (b[3] >> 2));
+            c += counts(((b[3] & 0x03) << 8) | b[4]);
+        }
+    } else if (BITS == 16) {  // little-endian
+        for (int64_t i = 0; i < nbytes / 2; ++i)
+            c += counts(s[2 * i] | (s[2 * i + 1] << 8));
+    } else {  // 8-bit: the bytes are the pixels
+        for (int64_t i = 0; i < nbytes; ++i) c += counts(s[i]);
     }
     return c;
 }
 
-static inline int32_t count_frame10(const uint8_t* __restrict s,
-                                    int64_t frame_nbytes, float background,
-                                    float threshold) {
-    const int64_t quads = frame_nbytes / 5;
+// The 12-bit vector step. Each packed pair b0 b1 b2 is permuted into the
+// words (b0 b1) and (b1 b2), big-end first: the even pixel is the first
+// shifted right by 4, the odd one the second masked to 12 bits. Returns
+// the count over the leading bytes it covered, their number in *done.
+// Every load lies inside [s, s + nbytes): the last frame of a memory map
+// ends where the mapping does.
+#if defined(__AVX512VBMI__) && defined(__AVX512BW__)
+#define COUNT12_PATH "avx512"
+static inline int32_t count12_vector(const uint8_t* __restrict s,
+                                     int64_t nbytes, int32_t p_min,
+                                     int64_t* done) {
+    alignas(64) static const uint8_t kPairs[64] = {
+        1, 0, 2, 1, 4, 3, 5, 4, 7, 6, 8, 7, 10, 9, 11, 10,
+        13, 12, 14, 13, 16, 15, 17, 16, 19, 18, 20, 19, 22, 21, 23, 22,
+        25, 24, 26, 25, 28, 27, 29, 28, 31, 30, 32, 31, 34, 33, 35, 34,
+        37, 36, 38, 37, 40, 39, 41, 40, 43, 42, 44, 43, 46, 45, 47, 46};
+    const __m512i idx = _mm512_load_si512(kPairs);
+    const __m512i lo12 = _mm512_set1_epi16(0x0FFF);
+    const __m512i least = _mm512_set1_epi16((int16_t)p_min);
     int32_t c = 0;
-    for (int64_t i = 0; i < quads; ++i) {
-        const uint8_t* b = s + 5 * i;
-        uint16_t p[4] = {
-            (uint16_t)((b[0] << 2) | (b[1] >> 6)),
-            (uint16_t)(((b[1] & 0x3F) << 4) | (b[2] >> 4)),
-            (uint16_t)(((b[2] & 0x0F) << 6) | (b[3] >> 2)),
-            (uint16_t)(((b[3] & 0x03) << 8) | b[4]),
-        };
-        for (int j = 0; j < 4; ++j) {
-            float v = (float)p[j] - background;
-            if (v < 0.0f) v = 0.0f;
-            c += (v > threshold);
+    int64_t i = 0;
+    for (; i + 64 <= nbytes; i += 48) {  // a 64-byte load, 48 bytes used
+        const __m512i w =
+            _mm512_permutexvar_epi8(idx, _mm512_loadu_si512(s + i));
+        const __m512i px = _mm512_mask_blend_epi16(
+            0xAAAAAAAAu, _mm512_srli_epi16(w, 4), _mm512_and_si512(w, lo12));
+        c += __builtin_popcount(_mm512_cmpge_epu16_mask(px, least));
+    }
+    *done = i;
+    return c;
+}
+#elif defined(__AVX2__)
+#define COUNT12_PATH "avx2"
+static inline int32_t count12_vector(const uint8_t* __restrict s,
+                                     int64_t nbytes, int32_t p_min,
+                                     int64_t* done) {
+    // Four pairs a 128-bit lane: bytes [i, i+12) and [i+12, i+24).
+    const __m256i idx = _mm256_setr_epi8(
+        1, 0, 2, 1, 4, 3, 5, 4, 7, 6, 8, 7, 10, 9, 11, 10,
+        1, 0, 2, 1, 4, 3, 5, 4, 7, 6, 8, 7, 10, 9, 11, 10);
+    const __m256i lo12 = _mm256_set1_epi16(0x0FFF);
+    // p >= p_min as a signed p > p_min - 1: pixels and p_min are < 2^15.
+    const __m256i below = _mm256_set1_epi16((int16_t)(p_min - 1));
+    int32_t bits = 0;  // two mask bits a pixel
+    int64_t i = 0;
+    for (; i + 28 <= nbytes; i += 24) {  // two 16-byte loads, 24 bytes used
+        const __m256i raw = _mm256_inserti128_si256(
+            _mm256_castsi128_si256(
+                _mm_loadu_si128((const __m128i*)(s + i))),
+            _mm_loadu_si128((const __m128i*)(s + i + 12)), 1);
+        const __m256i w = _mm256_shuffle_epi8(raw, idx);
+        const __m256i px = _mm256_blend_epi16(
+            _mm256_srli_epi16(w, 4), _mm256_and_si256(w, lo12), 0xAA);
+        bits += __builtin_popcount(
+            _mm256_movemask_epi8(_mm256_cmpgt_epi16(px, below)));
+    }
+    *done = i;
+    return bits / 2;
+}
+#else
+#define COUNT12_PATH "scalar"
+static inline int32_t count12_vector(const uint8_t*, int64_t, int32_t,
+                                     int64_t* done) {
+    *done = 0;
+    return 0;
+}
+#endif
+
+struct CountRule {
+    int32_t p_min;  // -1: the float rule per pixel
+    float background, threshold;
+};
+
+template <int BITS>
+static inline int32_t count_frame(const uint8_t* __restrict s,
+                                  int64_t nbytes, const CountRule& rule,
+                                  bool vector) {
+    const int32_t p_min = rule.p_min;
+    if (p_min < 0) {
+        const float bg = rule.background, thr = rule.threshold;
+        return count_pixels<BITS>(
+            s, nbytes, [=](int p) { return counts_f32((float)p, bg, thr); });
+    }
+    int64_t done = 0;
+    int32_t c = 0;
+    if (BITS == 12 && vector) c = count12_vector(s, nbytes, p_min, &done);
+    return c + count_pixels<BITS>(s + done, nbytes - done,
+                                  [=](int p) { return p >= p_min; });
+}
+
+template <int BITS>
+static void count_frames(const uint8_t* __restrict src, int64_t n_frames,
+                         int64_t frame_nbytes, float background,
+                         float threshold, int32_t* __restrict counts,
+                         bool vector) {
+    const CountRule rule{least_counting_code(BITS, background, threshold),
+                         background, threshold};
+#pragma omp parallel for schedule(static) num_threads(scan_threads())
+    for (int64_t f = 0; f < n_frames; ++f)
+        counts[f] = count_frame<BITS>(src + f * frame_nbytes, frame_nbytes,
+                                      rule, vector);
+}
+
+// Fused gather + count: ONE sweep over the packed payload. Per frame, the
+// above-noise count over the WHOLE frame and a copy of the selected band
+// rows, right after the count while the frame's bytes are cache-hot — so
+// host staging reads the payload's DRAM once. With the vector count the
+// sweep runs near the host's memory floor: on two 8-core Xeon hosts (AVX-512
+// VBMI), 8 threads over a fresh mapping of a 402.7 MB recording, it ran at
+// 27.0 and 31.9 GB/s, where the float loop ran at 16.6 and 18.5 and a walk
+// that only touches each cache line and copies the rows at 26.7 and 49.2
+// (medians; PERF.md §5). So the memory traffic and the mapping's page
+// faults bound it first, the vector decode second.
+template <int BITS>
+static void gather_count(const uint8_t* __restrict src, int64_t n_frames,
+                         int64_t frame_nbytes,
+                         const int64_t* __restrict row_offsets,
+                         int64_t n_rows, int64_t row_nbytes, float background,
+                         float threshold, uint8_t* __restrict dst,
+                         int32_t* __restrict counts) {
+    const CountRule rule{least_counting_code(BITS, background, threshold),
+                         background, threshold};
+#pragma omp parallel for schedule(static) num_threads(scan_threads())
+    for (int64_t f = 0; f < n_frames; ++f) {
+        const uint8_t* s = src + f * frame_nbytes;
+        counts[f] = count_frame<BITS>(s, frame_nbytes, rule, true);
+        uint8_t* d = dst + f * n_rows * row_nbytes;
+        for (int64_t r = 0; r < n_rows; ++r) {
+            const uint8_t* sr = s + row_offsets[r];
+            uint8_t* dr = d + r * row_nbytes;
+            for (int64_t i = 0; i < row_nbytes; ++i) dr[i] = sr[i];
         }
     }
-    return c;
 }
 
-static inline int32_t count_frame16(const uint8_t* __restrict s,
-                                    int64_t frame_nbytes, float background,
-                                    float threshold) {
-    const int64_t px = frame_nbytes / 2;
-    int32_t c = 0;
-    for (int64_t i = 0; i < px; ++i) {
-        uint16_t p = (uint16_t)(s[2 * i] | (s[2 * i + 1] << 8));
-        float v = (float)p - background;
-        if (v < 0.0f) v = 0.0f;
-        c += (v > threshold);
+extern "C" {
+
+// counts[f] = #pixels of frame f that count (see above). The fused
+// gather+count below is the staging path; these serve the two-pass
+// degrade and MRAWReader.count_above.
+#define COUNT_ABOVE(BITS)                                                   \
+void count_above##BITS(const uint8_t* __restrict src, int64_t n_frames,     \
+                       int64_t frame_nbytes, float background,              \
+                       float threshold, int32_t* __restrict counts) {       \
+    count_frames<BITS>(src, n_frames, frame_nbytes, background, threshold,  \
+                       counts, true);                                       \
+}
+COUNT_ABOVE(8)
+COUNT_ABOVE(10)
+COUNT_ABOVE(12)
+COUNT_ABOVE(16)
+
+// The same counts by the scalar integer loop alone, for any depth: what
+// the vector path is held against.
+void count_above_scalar(const uint8_t* __restrict src, int64_t n_frames,
+                        int64_t frame_nbytes, int32_t bits, float background,
+                        float threshold, int32_t* __restrict counts) {
+    switch (bits) {
+        case 8: count_frames<8>(src, n_frames, frame_nbytes, background,
+                                threshold, counts, false); break;
+        case 10: count_frames<10>(src, n_frames, frame_nbytes, background,
+                                  threshold, counts, false); break;
+        case 12: count_frames<12>(src, n_frames, frame_nbytes, background,
+                                  threshold, counts, false); break;
+        case 16: count_frames<16>(src, n_frames, frame_nbytes, background,
+                                  threshold, counts, false); break;
     }
-    return c;
 }
 
-static inline int32_t count_frame8(const uint8_t* __restrict s,
-                                   int64_t frame_nbytes, float background,
-                                   float threshold) {
-    int32_t c = 0;
-    for (int64_t i = 0; i < frame_nbytes; ++i) {
-        float v = (float)s[i] - background;
-        if (v < 0.0f) v = 0.0f;
-        c += (v > threshold);
-    }
-    return c;
-}
+// Which path counts 12-bit pixels in this build: "avx512", "avx2" or
+// "scalar". Every other depth takes the scalar integer loop.
+const char* native_count_path() { return COUNT12_PATH; }
 
-FUSED_GATHER_COUNT(gather_count12, count_frame12)
-FUSED_GATHER_COUNT(gather_count10, count_frame10)
-FUSED_GATHER_COUNT(gather_count16, count_frame16)
-FUSED_GATHER_COUNT(gather_count8, count_frame8)
+#define GATHER_COUNT(BITS)                                                  \
+void gather_count##BITS(const uint8_t* __restrict src, int64_t n_frames,    \
+                        int64_t frame_nbytes,                               \
+                        const int64_t* __restrict row_offsets,              \
+                        int64_t n_rows, int64_t row_nbytes,                 \
+                        float background, float threshold,                  \
+                        uint8_t* __restrict dst,                            \
+                        int32_t* __restrict counts) {                       \
+    gather_count<BITS>(src, n_frames, frame_nbytes, row_offsets, n_rows,    \
+                       row_nbytes, background, threshold, dst, counts);     \
+}
+GATHER_COUNT(8)
+GATHER_COUNT(10)
+GATHER_COUNT(12)
+GATHER_COUNT(16)
 
 // Gather selected byte-aligned rows from every frame of a packed payload:
 // dst[f, r, :] = src[f * frame_nbytes + row_offsets[r] : + row_nbytes].

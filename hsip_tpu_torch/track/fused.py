@@ -138,6 +138,17 @@ def release_staging(buf: torch.Tensor, event=None) -> None:
         _STAGING_POOL.append((key, buf, event))
 
 
+def count_fused_frames(stage_times, n_frames: int, bit_depth: int) -> None:
+    """Count, in ``stage_times``, the frames one fused gather+count pass
+    counted (``frames_counted``) and those of them a vector path of the
+    native count covered (``frames_counted_vector``, 0 when none did)."""
+    from .._native import native_decoder
+
+    vector = native_decoder().vector_count(bit_depth)
+    stage_times.count("frames_counted", n_frames)
+    stage_times.count("frames_counted_vector", n_frames if vector else 0)
+
+
 _COPY_STREAMS: dict = {}
 
 
@@ -371,7 +382,9 @@ def track_uniform_videos_fused(
     enqueue, plus, under ``h2d``, the wait for the group's copy event; the
     wait for the device lands in ``d2h``. Counters: ``frames_staged`` (the
     frames of every group), ``frames_copied`` (the rows copied to the
-    device after the clip) and ``clipped_groups``.
+    device after the clip), ``clipped_groups``, and from the gather threads
+    ``frames_counted`` and ``frames_counted_vector``
+    (:func:`count_fused_frames`).
     """
     from ..kernels.cuda_preprocess import cuda_band_profiles
     from ..kernels.preprocess import band_folds, band_margin, reflect_indices
@@ -475,6 +488,7 @@ def track_uniform_videos_fused(
                 )
                 if fused_rc is not None:
                     counts_done[i] = fused_rc[1]
+                    count_fused_frames(stage_times, n, depth0)
                 else:
                     count_futs[i] = count_pool.submit(
                         stage_times.wrap("counts_host", count_fn), 0, n, bg,

@@ -36,7 +36,7 @@ from .batch import ScanHistory, build_device_scan_output
 from .config import FlameDetectorConfig
 from .cuda_scan import cuda_tracking_scan
 from .device_scan import tracking_scan_plain
-from .fused import release_staging, take_staging
+from .fused import count_fused_frames, release_staging, take_staging
 from .host_scan import (
     MIN_SIGNAL_FRACTION,
     NOISE_THRESHOLD_FLOOR,
@@ -217,6 +217,8 @@ def compute_profiles_batched(
                         route = "band"
                     else:
                         host, counts = fused
+                        count_fused_frames(stage_times, counts.size,
+                                           band_bit_depth)
                 if counts is None:
                     # Two-pass: the native count pass (releases the GIL)
                     # runs beside the band gather and the transfer.
@@ -387,11 +389,12 @@ def _compute_profiles_sharded(
             parts = [video.band_bytes_and_counts(int(r[0]), int(r[-1]) + 1, band_rows,
                                                  background_scalar, noise_threshold)
                      for r in _runs(idxs)]
-            if len(parts) == 1 and parts[0] is not None:
-                return parts[0]
             if all(p is not None for p in parts):
-                return (np.concatenate([p[0] for p in parts]),
-                        np.concatenate([p[1] for p in parts]))
+                band, counts = (parts[0] if len(parts) == 1 else
+                                (np.concatenate([p[0] for p in parts]),
+                                 np.concatenate([p[1] for p in parts])))
+                count_fused_frames(stage_times, counts.size, depth)
+                return band, counts
             route = "band"  # stale native library: two passes from here on
         counts = _multi_read(
             lambda a, b: count_fn(a, b, background_scalar, noise_threshold), idxs)

@@ -100,6 +100,126 @@ def test_native_codec_matches(depth):
         np.testing.assert_array_equal(getattr(pd, unpack)(packed), getattr(jd, unpack)(packed))
 
 
+# ---- _native: the above-noise count, path by path ----
+
+def _float_rule_counts(frames, background, threshold):
+    """The count's rule as the float loop had it, in float32: a pixel counts
+    when max(p - background, 0) > threshold."""
+    v = frames.astype(np.float32) - np.float32(background)
+    v = np.where(v < 0, np.float32(0), v)
+    return (v > np.float32(threshold)).reshape(len(frames), -1).sum(1)
+
+
+def _pack(frames, depth):
+    flat = frames.reshape(-1)
+    if depth == 12:
+        return port_io.mraw.pack_12bit(flat)
+    if depth == 10:
+        return port_io.mraw.pack_10bit(flat)
+    return flat.astype(np.uint8) if depth == 8 else flat.astype("<u2").view(np.uint8)
+
+
+def _map_with_guard_page(path, nbytes):
+    """``path``'s ``nbytes`` (whole pages) mapped read-only, with the page
+    after them mapped with no access: a read past the last byte faults, as
+    past the end of a recording's memory map. Returns (array, unmap)."""
+    import ctypes
+    import mmap
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mmap.restype = ctypes.c_void_p
+    libc.mmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_long]
+    libc.munmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    page = mmap.PAGESIZE
+    assert nbytes % page == 0
+    prot_none, map_fixed = 0, 0x10  # Linux
+    base = libc.mmap(None, nbytes + page, prot_none,
+                     mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS, -1, 0)
+    assert base not in (None, ctypes.c_void_p(-1).value)
+    with open(path, "rb") as f:
+        addr = libc.mmap(base, nbytes, mmap.PROT_READ,
+                         mmap.MAP_SHARED | map_fixed, f.fileno(), 0)
+    assert addr == base
+    arr = np.ctypeslib.as_array((ctypes.c_uint8 * nbytes).from_address(addr))
+    return arr, lambda: libc.munmap(base, nbytes + page)
+
+
+@pytest.fixture(scope="module")
+def count_decoders(tmp_path_factory):
+    """The port's codec as built, and on x86-64 the same source rebuilt for
+    AVX2 alone and for no vector extension, so that each 12-bit count path
+    runs here whatever this host's build picks."""
+    import platform
+    import subprocess
+
+    decoders = {"as built": port_native.native_decoder()}
+    if platform.machine() != "x86_64":
+        return decoders
+    with open("/proc/cpuinfo") as f:
+        avx2 = " avx2 " in next((line for line in f if line.startswith("flags")), "") + " "
+    out = tmp_path_factory.mktemp("count-builds")
+    for march, path in (("x86-64-v3", "avx2"), ("x86-64", "scalar")):
+        if path == "avx2" and not avx2:
+            continue
+        lib = out / f"libmraw_decode-{march}.so"
+        subprocess.run(["g++", "-O3", f"-march={march}", "-ffp-contract=off", "-shared",
+                        "-fPIC", "-fopenmp", str(port_native._SRC), "-o", str(lib)],
+                       check=True, capture_output=True)
+        decoders[path] = port_native.NativeDecoder(lib)
+        assert decoders[path].count_path == path
+    return decoders
+
+
+# name: (frames, height, width, background(depth), threshold(depth))
+_COUNT_CASES = {
+    "fractional": (3, 7, 64, lambda d: 100.3, lambda d: 50.7),
+    "threshold_on_a_code": (3, 7, 64, lambda d: 37.25, lambda d: 200 - 37.25),
+    "negative_threshold": (3, 7, 64, lambda d: 10.0, lambda d: -5.0),
+    "background_above_every_code": (3, 7, 64, lambda d: (1 << d) + 0.5, lambda d: 1.0),
+    "nan_background": (3, 7, 64, lambda d: float("nan"), lambda d: 1.0),
+    "nan_threshold": (3, 7, 64, lambda d: 10.0, lambda d: float("nan")),
+    "ragged_frame_bytes": (3, 5, 132, lambda d: 100.3, lambda d: 50.7),
+    "one_frame": (1, 16, 1024, lambda d: 0.5 * (1 << d), lambda d: 0.25 * (1 << d)),
+    "mapped_to_the_end": (2, 8, 1024, lambda d: 100.3, lambda d: 50.7),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_COUNT_CASES))
+@pytest.mark.parametrize("depth", DEPTHS)
+def test_count_paths_match_the_float_rule(count_decoders, tmp_path, depth, case):
+    """Every count path of every build (the vector pass, the scalar integer
+    loop, the fused gather+count) equals the float32 rule exactly."""
+    n, h, w, bg_of, thr_of = _COUNT_CASES[case]
+    bg, thr = bg_of(depth), thr_of(depth)
+    frames = _frames(depth * 7 + len(case), n=n, h=h, w=w, depth=depth)
+    edge = [0, 199, 200, 201, (1 << depth) - 1]  # codes around the rule's edges
+    frames.reshape(n, -1)[:, :len(edge)] = edge
+    packed = _pack(frames, depth)
+    fbytes = packed.size // n
+    unmap = None
+    if case == "mapped_to_the_end":
+        path = tmp_path / "payload.mraw"
+        packed.tofile(path)
+        packed, unmap = _map_with_guard_page(path, packed.size)
+    want = _float_rule_counts(frames, bg, thr)
+    rows = np.array([0, fbytes // h * (h - 1)], dtype=np.int64)
+    try:
+        for name, d in count_decoders.items():
+            got = {
+                "vector": getattr(d, f"count_above_{depth}bit")(packed, fbytes, bg, thr),
+                "scalar": d.count_above_scalar(packed, fbytes, depth, bg, thr),
+                "fused": d.gather_rows_count(packed, fbytes, rows, fbytes // h,
+                                             bg, thr, depth)[1],
+            }
+            for path, counts in got.items():
+                np.testing.assert_array_equal(counts, want, err_msg=f"{name}: {path}")
+    finally:
+        if unmap is not None:
+            del packed
+            unmap()
+
+
 # ---- io: synthetic recordings, CIHX parse, MRAW decode ----
 
 @pytest.mark.parametrize("depth", DEPTHS)

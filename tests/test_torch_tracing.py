@@ -9,7 +9,8 @@ included: a wrapper that fills in a ``stage_times`` where the caller gave
 none (as a traced benchmark run does) then still reaches the tracking
 function. The library program times its main thread's wait for the
 gathers, its group metadata and its staging buffer, and counts the frames
-staged and copied and the groups clipped.
+staged and copied and the groups clipped. The fused gather+count pass, on
+either route, counts the frames it counted and those a vector path did.
 """
 
 import importlib
@@ -218,7 +219,26 @@ def test_per_file_call_records_its_stages(library_dir, tmp_path, runner):
                 "device_dispatch", "tables", "write_tables"):
         assert key in got, got
     assert ("discover" in got) == ("ledger" in got) == (runner == "source")
-    assert not any(k.startswith("count.") for k in got)  # no group program
+    # no group program: the fused gather+count pass's counters alone
+    assert {k for k in got if k.startswith("count.")} == {
+        "count.frames_counted", "count.frames_counted_vector"}
+
+
+@pytest.mark.parametrize("runner", ["file", "library"])
+def test_fused_pass_counts_its_frames_and_the_vector_ones(library_dir, tmp_path,
+                                                          runner):
+    """Every frame staged went through the fused gather+count pass; the
+    vector path covered all of them or none, as the build reports."""
+    from hsip_tpu_torch._native import native_decoder
+
+    t = StageTimes()
+    outs = _run(runner, library_dir, tmp_path / "out", stage_times=t)
+    assert outs and all(o.rows for o in outs)
+    got = t.as_dict()
+    staged = FRAMES * len(outs)
+    assert got["count.frames_counted"] == staged
+    vector = native_decoder().count_path != "scalar"
+    assert got["count.frames_counted_vector"] == (staged if vector else 0)
 
 
 @pytest.mark.parametrize("runner, names", [
