@@ -144,17 +144,16 @@ class VideoProcessor:
         ``kind`` is a device or its name; ``None`` means ``cuda``. ``cpu``
         and a CUDA device named with its index stay as they are; plain
         ``cuda`` becomes ``cuda:N`` with N the launcher's ``LOCAL_RANK``
-        when set, else ``rank % torch.cuda.device_count()`` — so two ranks
+        when set, else the rank, modulo ``torch.cuda.device_count()`` —
+        so the ranks of a machine take its cards in turn, and four ranks
         on a one-card machine share ``cuda:0``. Raises ``RuntimeError``
         when a CUDA device is asked for and none is available.
         """
         dev = resolve_device(kind)
         if dev.type != "cuda" or dev.index is not None:
             return dev
-        local_rank = os.environ.get("LOCAL_RANK")
-        if local_rank is not None:
-            return torch.device("cuda", int(local_rank))
-        return torch.device("cuda", self._rank % torch.cuda.device_count())
+        local_rank = int(os.environ.get("LOCAL_RANK", self._rank))
+        return torch.device("cuda", local_rank % torch.cuda.device_count())
 
     # -- index distribution ----------------------------------------------------
 

@@ -454,10 +454,13 @@ class _SourceLedger:
     ledger setup before anyone marks progress, and a cumulative
     ``run-summary.json``. Keeping them in one helper means a fix to the
     ledger semantics lands in both runners at once.
+
+    Each wait for the other ranks (the processor's barrier) is timed in
+    ``stages`` as ``rank_wait``; without a processor there is none.
     """
 
     def __init__(self, config, detector_config, backend_tag: str,
-                 processor, resume: bool):
+                 processor, resume: bool, stages: StageTimes):
         import hashlib
 
         from .utils.checkpoint import BatchCheckpoint
@@ -466,6 +469,7 @@ class _SourceLedger:
         self._config = config
         self._processor = processor
         self._resume = resume
+        self._stages = stages
         self._rank = processor.rank if processor is not None else 0
         self.checkpoint = None
         self.summary = None
@@ -480,7 +484,7 @@ class _SourceLedger:
                 self.checkpoint.clear()
             if processor is not None:
                 # All ranks finish ledger setup before anyone marks progress.
-                processor.barrier()
+                self._rank_wait()
             self.summary = RunSummary(
                 config.name,
                 config_echo={"source": config, "detector": detector_config,
@@ -491,6 +495,10 @@ class _SourceLedger:
                 # via the checkpoint keep their entries; retried files
                 # replace theirs.
                 self.summary.seed_from(config.output_dir, rank=self._rank)
+
+    def _rank_wait(self):
+        with self._stages.stage("rank_wait"):
+            self._processor.barrier()
 
     def ledger_key(self, path) -> str:
         """Per-recording ledger key: the path relative to the source's
@@ -552,7 +560,7 @@ class _SourceLedger:
             # checkpoint-skipped) leaves the previous summary untouched.
             self.summary.write(self._config.output_dir, rank=self._rank)
         if self._processor is not None:
-            self._processor.barrier()
+            self._rank_wait()
 
 
 def _file_fingerprint(path: Path):
@@ -639,7 +647,7 @@ def _warn_unmatched_calibration(config, filename: str) -> None:
         )
 
 
-def _discover_source_files(config, processor, verbose, is_root,
+def _discover_source_files(config, processor, verbose, is_root, stages,
                            mode_banner=""):
     """Shared batch-runner prologue: banner, rglob discovery, and
     per-process distribution. A discovery/distribution fix here lands in
@@ -652,6 +660,9 @@ def _discover_source_files(config, processor, verbose, is_root,
     ``[]`` and must still run the ledger path — its barriers have to align
     with the ranks that did receive files; returning early would pair its
     next barrier with a different pass's and desynchronize the whole run.
+
+    Under a processor, ``stages`` counts ``rank_recordings`` (the
+    recordings this process was given).
     """
     if verbose and is_root:
         print(f"\n{'=' * 60}")
@@ -669,6 +680,7 @@ def _discover_source_files(config, processor, verbose, is_root,
     if processor is not None:
         my_indices = set(processor.distribute_indices(len(cihx_files)))
         cihx_files = [f for i, f in enumerate(cihx_files) if i in my_indices]
+        stages.count("rank_recordings", len(cihx_files))
     return cihx_files
 
 
@@ -708,8 +720,10 @@ def process_video_source(
     Figures without matplotlib raise ``ModuleNotFoundError`` before any
     file is touched (:func:`_require_figure_renderer`).
 
-    ``stage_times`` takes the stages ``discover`` and ``ledger`` and is
-    handed to :func:`process_video_file` as given, None included.
+    ``stage_times`` takes the stages ``discover`` and ``ledger``, with a
+    processor ``rank_wait`` (inside ``ledger``) and the counter
+    ``rank_recordings``, and is handed to :func:`process_video_file` as
+    given, None included.
     """
     import time as _time
 
@@ -723,13 +737,13 @@ def process_video_source(
     is_root = processor is None or processor.is_root
     with stages.stage("discover"):
         cihx_files = _discover_source_files(config, processor, verbose,
-                                            is_root)
+                                            is_root, stages)
     if cihx_files is None:
         return []  # globally nothing — every rank takes this branch
 
     with stages.stage("ledger"):
         ledger = _SourceLedger(config, detector_config, backend, processor,
-                               resume)
+                               resume, stages)
 
     def _announce_skip(f):
         if verbose and is_root:
@@ -829,7 +843,9 @@ def process_video_source_library(
     mesh's first slot and serves the figure replay.
 
     ``stage_times`` takes the stages ``discover``, ``ledger``, ``open``
-    (opening the recordings, and closing them) and ``write_tables``, and
+    (opening the recordings, and closing them) and ``write_tables``, with
+    a processor ``rank_wait`` and the counter ``rank_recordings`` as
+    :func:`process_video_source` takes them, and
     is handed to the tracking function and the figure replay as given,
     None included.
     """
@@ -846,7 +862,8 @@ def process_video_source_library(
     is_root = processor is None or processor.is_root
     with stages.stage("discover"):
         cihx_files = _discover_source_files(
-            config, processor, verbose, is_root, mode_banner=" (library mode)"
+            config, processor, verbose, is_root, stages,
+            mode_banner=" (library mode)"
         )
     if cihx_files is None:
         return []  # globally nothing — every rank takes this branch
@@ -857,7 +874,7 @@ def process_video_source_library(
 
     with stages.stage("ledger"):
         ledger = _SourceLedger(config, detector_config, "library", processor,
-                               resume)
+                               resume, stages)
         cihx_files = ledger.filter_pending(cihx_files, _announce_skip)
 
     # Open with the collection layer's warn-and-skip batch semantics: one

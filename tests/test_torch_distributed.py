@@ -139,6 +139,13 @@ def test_local_device(monkeypatch):
     assert p.local_device("cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError, match="no CUDA device 7"):
         p.local_device("cuda:7")
+    # Local ranks at or past the card count take the cards in turn.
+    monkeypatch.setenv("LOCAL_RANK", "5")
+    assert p.local_device("cuda") == torch.device("cuda", 1)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert p.local_device("cuda") == torch.device("cuda", 0)
+    assert p.local_device(None) == torch.device("cuda", 0)
 
 
 def test_initialize_needs_an_address_or_the_environment(monkeypatch):

@@ -26,6 +26,7 @@ from hsip_tpu_torch.io import (  # noqa: E402
 )
 from hsip_tpu_torch.kernels._build import KernelError  # noqa: E402
 from hsip_tpu_torch.track.config import FileCalibration, VideoSourceConfig  # noqa: E402
+from hsip_tpu_torch.utils.profiling import StageTimes  # noqa: E402
 
 from test_torch_library import pin_reference_puts  # noqa: E402
 
@@ -334,16 +335,21 @@ def test_processor_splits_files_and_writes_rank_ledgers(library_dir, tmp_path, r
     for rank in (0, 1):
         proc = _Processor(rank)
         cfg = _source(library_dir, out)
+        stages = StageTimes()
         if runner == "library":
             outs = port_pipeline.process_video_source_library(
                 cfg, processor=proc, verbose=False, resume=rank == 1,
-                device="cpu")
+                device="cpu", stage_times=stages)
         else:
             outs = port_pipeline.process_video_source(
                 cfg, backend="device", processor=proc, verbose=False,
-                resume=rank == 1, device="cpu")
+                resume=rank == 1, device="cpu", stage_times=stages)
         counts.append(len(outs))
         assert proc.barriers == 2  # after ledger set-up, and in finish()
+        # Both barriers are timed as rank_wait; discovery counts the split.
+        seen = stages.as_dict(ndigits=9)
+        assert "rank_wait" in seen
+        assert seen["count.rank_recordings"] == [2, 1][rank]
     assert counts == [2, 1]
     assert (out / "hsip-checkpoint.json").exists()
     assert (out / "hsip-checkpoint.rank1.json").exists()
