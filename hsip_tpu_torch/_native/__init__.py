@@ -84,6 +84,27 @@ def build_library(force: bool = False) -> Path:
         return _LIB
 
 
+def _band_args(packed, frame_nbytes: int, row_offsets, row_nbytes: int,
+               out: Optional[np.ndarray]):
+    """The flat payload, the int64 row offsets and the checked (or new)
+    ``(n_frames, len(row_offsets), row_nbytes)`` output of a band gather."""
+    packed = np.ascontiguousarray(packed, dtype=np.uint8).reshape(-1)
+    if packed.size % frame_nbytes:
+        raise ValueError("packed size must be whole frames")
+    offsets = np.ascontiguousarray(row_offsets, dtype=np.int64)
+    if offsets.size and (
+        offsets.min() < 0 or offsets.max() + row_nbytes > frame_nbytes
+    ):
+        raise ValueError("row offsets out of frame bounds")
+    shape = (packed.size // frame_nbytes, offsets.size, row_nbytes)
+    if out is None:
+        out = np.empty(shape, dtype=np.uint8)
+    elif (out.shape != shape or out.dtype != np.uint8
+          or not out.flags.c_contiguous):
+        raise ValueError(f"out must be C-contiguous uint8 of shape {shape}")
+    return packed, offsets, out
+
+
 class NativeDecoder:
     """ctypes wrapper over the native codec."""
 
@@ -130,11 +151,13 @@ class NativeDecoder:
         try:
             for name in ("gather_count8", "gather_count10",
                          "gather_count12", "gather_count16"):
-                getattr(lib, name).argtypes = [
+                fn = getattr(lib, name)
+                fn.argtypes = [
                     u8p, ctypes.c_int64, ctypes.c_int64,
                     i64p, ctypes.c_int64, ctypes.c_int64,
-                    ctypes.c_float, ctypes.c_float, u8p, i32p,
+                    ctypes.c_float, ctypes.c_float, ctypes.c_int32, u8p, i32p,
                 ]
+                fn.restype = ctypes.c_int64
             self._has_gather_count = True
         except AttributeError:
             # Stale cached .so predating the fused gather+count pass:
@@ -400,16 +423,25 @@ class NativeDecoder:
         threshold: float,
         bit_depth: int,
         out: Optional[np.ndarray] = None,
+        cap: Optional[int] = None,
     ):
         """ONE pass over the packed payload: gather the band rows AND count
         above-noise pixels per frame.
 
-        Returns ``(band, counts)`` — byte/value-identical to calling
-        :meth:`gather_rows` and ``count_above_*`` separately, but the
+        Returns ``(band, counts, stopped)``: ``band`` byte-identical to
+        :meth:`gather_rows`, ``counts`` to ``count_above_*`` — but the
         payload's DRAM traffic is paid once (the host-staging hot path is
-        memory-bound; VERDICT r3 #4). Raises ``RuntimeError`` on a stale
-        cached library lacking the symbols — callers gate on
-        :attr:`has_gather_count`.
+        memory-bound; VERDICT r3 #4). With ``cap``, ``counts`` is
+        ``min(count, cap)`` and each frame's count stops once it reaches
+        ``cap``: the band's distinct rows are counted first, then the
+        frame's other rows in order while the count is below ``cap``, so a
+        caller that only asks whether a count reaches ``cap`` (the
+        empty-frame test) reads little more than the band of a lit frame.
+        ``stopped`` is the number of frames whose count stopped before
+        their last row (0 without a cap). Frames must be whole rows of
+        whole pixel groups, each offset the start of a row. Raises
+        ``RuntimeError`` on a stale cached library lacking the symbols —
+        callers gate on :attr:`has_gather_count`.
         """
         if not self._has_gather_count:
             raise RuntimeError(
@@ -421,29 +453,25 @@ class NativeDecoder:
             12: self._lib.gather_count12,
             16: self._lib.gather_count16,
         }[bit_depth]
-        packed = np.ascontiguousarray(packed, dtype=np.uint8).reshape(-1)
-        if packed.size % frame_nbytes:
-            raise ValueError("packed size must be whole frames")
-        offsets = np.ascontiguousarray(row_offsets, dtype=np.int64)
-        if offsets.size and (
-            offsets.min() < 0 or offsets.max() + row_nbytes > frame_nbytes
-        ):
-            raise ValueError("row offsets out of frame bounds")
-        n_frames = packed.size // frame_nbytes
-        shape = (n_frames, offsets.size, row_nbytes)
-        if out is None:
-            out = np.empty(shape, dtype=np.uint8)
-        elif (out.shape != shape or out.dtype != np.uint8
-              or not out.flags.c_contiguous):
-            raise ValueError(
-                f"out must be C-contiguous uint8 of shape {shape}"
-            )
+        group = {8: 1, 10: 5, 12: 3, 16: 2}[bit_depth]
+        if row_nbytes <= 0 or row_nbytes % group or frame_nbytes % row_nbytes:
+            raise ValueError("frames must be whole rows of whole pixel groups")
+        if cap is not None and cap < 0:
+            raise ValueError("cap must be non-negative")
+        packed, offsets, out = _band_args(packed, frame_nbytes, row_offsets,
+                                          row_nbytes, out)
+        if np.any(offsets % row_nbytes):
+            raise ValueError("row offsets must start rows")
+        int32_max = np.iinfo(np.int32).max
+        n_frames = len(out)
         counts = np.empty(n_frames, dtype=np.int32)
-        fn(
+        stopped = fn(
             packed, n_frames, frame_nbytes, offsets, offsets.size,
-            row_nbytes, float(background), float(threshold), out, counts,
+            row_nbytes, float(background), float(threshold),
+            int32_max if cap is None else min(int(cap), int32_max), out,
+            counts,
         )
-        return out, counts
+        return out, counts, int(stopped)
 
     def gather_rows(
         self,
@@ -462,23 +490,9 @@ class NativeDecoder:
         e.g. the fused library path's single batched payload — skipping
         one full-payload copy on the bandwidth-starved host.
         """
-        packed = np.ascontiguousarray(packed, dtype=np.uint8).reshape(-1)
-        if packed.size % frame_nbytes:
-            raise ValueError("packed size must be whole frames")
-        offsets = np.ascontiguousarray(row_offsets, dtype=np.int64)
-        if offsets.size and (
-            offsets.min() < 0 or offsets.max() + row_nbytes > frame_nbytes
-        ):
-            raise ValueError("row offsets out of frame bounds")
-        n_frames = packed.size // frame_nbytes
-        shape = (n_frames, offsets.size, row_nbytes)
-        if out is None:
-            out = np.empty(shape, dtype=np.uint8)
-        elif (out.shape != shape or out.dtype != np.uint8
-              or not out.flags.c_contiguous):
-            raise ValueError(
-                f"out must be C-contiguous uint8 of shape {shape}"
-            )
+        packed, offsets, out = _band_args(packed, frame_nbytes, row_offsets,
+                                          row_nbytes, out)
+        n_frames = len(out)
         self._lib.gather_rows(
             packed, n_frames, frame_nbytes, offsets, offsets.size,
             row_nbytes, out,

@@ -17,6 +17,7 @@
 
 #include <cstdint>
 #include <cstddef>
+#include <vector>
 
 #ifdef _OPENMP
 #include <omp.h>
@@ -284,36 +285,113 @@ static void count_frames(const uint8_t* __restrict src, int64_t n_frames,
                                       rule, vector);
 }
 
-// Fused gather + count: ONE sweep over the packed payload. Per frame, the
-// above-noise count over the WHOLE frame and a copy of the selected band
-// rows, right after the count while the frame's bytes are cache-hot — so
-// host staging reads the payload's DRAM once. With the vector count the
-// sweep runs near the host's memory floor: on two 8-core Xeon hosts (AVX-512
-// VBMI), 8 threads over a fresh mapping of a 402.7 MB recording, it ran at
-// 27.0 and 31.9 GB/s, where the float loop ran at 16.6 and 18.5 and a walk
-// that only touches each cache line and copies the rows at 26.7 and 49.2
-// (medians; PERF.md §5). So the memory traffic and the mapping's page
-// faults bound it first, the vector decode second.
+// The selected rows of one frame s, row_nbytes bytes from each of
+// s + row_offsets[r], into d one after another.
+static inline void copy_rows(const uint8_t* __restrict s,
+                             const int64_t* __restrict row_offsets,
+                             int64_t n_rows, int64_t row_nbytes,
+                             uint8_t* __restrict d) {
+    for (int64_t r = 0; r < n_rows; ++r) {
+        const uint8_t* sr = s + row_offsets[r];
+        uint8_t* dr = d + r * row_nbytes;
+        for (int64_t i = 0; i < row_nbytes; ++i) dr[i] = sr[i];
+    }
+}
+
+// Fused gather + count: ONE sweep over the packed payload. Per frame, a
+// copy of the selected band rows and the frame's above-noise count, taken
+// while the frame's bytes are cache-hot, so host staging reads the
+// payload's DRAM at most once. With the vector count the sweep runs near
+// the host's memory floor: on two 8-core Xeon hosts (AVX-512 VBMI), 8
+// threads over a fresh mapping of a 402.7 MB recording, the whole-frame
+// count ran at 27.0 and 31.9 GB/s, where the float loop ran at 16.6 and
+// 18.5 and a walk that only touches each cache line and copies the rows at
+// 26.7 and 49.2 (medians; PERF.md §5). So the memory traffic and the
+// mapping's page faults bound it first, the vector decode second.
+//
+// counts[f] is min(count, cap). A caller that needs exact counts passes a
+// cap above a frame's pixels: no count can reach it, so each frame is
+// counted whole, in one segment, and each thread takes one contiguous
+// range of frames. That loop is kept apart: with its exact counts taken
+// by the capped loop below instead, the per-file route ran at 0.62 times
+// its frames/s on the H100's host (PERF.md §6). A caller that only asks
+// whether a frame's count reaches cap
+// (the empty-frame test) passes that count, and most of a lit frame's
+// bytes are never read: the band's distinct rows are counted first,
+// while the copy has them in cache, and the frame's other rows follow in
+// order only while the count is below cap, stopping at the first row
+// boundary where it reaches cap. Contiguous rows of the band are counted
+// as one segment, the other rows one row at a time. Rows must be whole
+// pixel groups (byte-aligned rows), so a segment's count is that of its
+// pixels and every vector load stays inside its segment. Returns the
+// frames whose count stopped before their last row. The capped loop is
+// dynamic: a dark frame costs several lit ones, and dark frames come in
+// runs.
+struct RowRun {
+    int64_t first, n;
+};
+
+static void row_runs(const std::vector<char>& take, char want,
+                     std::vector<RowRun>* runs) {
+    const int64_t h = (int64_t)take.size();
+    for (int64_t r = 0; r < h;) {
+        if (take[r] != want) { ++r; continue; }
+        int64_t e = r;
+        while (e < h && take[e] == want) ++e;
+        runs->push_back({r, e - r});
+        r = e;
+    }
+}
+
 template <int BITS>
-static void gather_count(const uint8_t* __restrict src, int64_t n_frames,
-                         int64_t frame_nbytes,
-                         const int64_t* __restrict row_offsets,
-                         int64_t n_rows, int64_t row_nbytes, float background,
-                         float threshold, uint8_t* __restrict dst,
-                         int32_t* __restrict counts) {
+static int64_t gather_count(
+        const uint8_t* __restrict src, int64_t n_frames, int64_t frame_nbytes,
+        const int64_t* __restrict row_offsets, int64_t n_rows,
+        int64_t row_nbytes, float background, float threshold, int32_t cap,
+        uint8_t* __restrict dst, int32_t* __restrict counts) {
     const CountRule rule{least_counting_code(BITS, background, threshold),
                          background, threshold};
+    if ((int64_t)cap > frame_nbytes * 8 / BITS) {  // exact counts
 #pragma omp parallel for schedule(static) num_threads(scan_threads())
+        for (int64_t f = 0; f < n_frames; ++f) {
+            const uint8_t* s = src + f * frame_nbytes;
+            counts[f] = count_frame<BITS>(s, frame_nbytes, rule, true);
+            copy_rows(s, row_offsets, n_rows, row_nbytes,
+                      dst + f * n_rows * row_nbytes);
+        }
+        return 0;
+    }
+    const int64_t h = frame_nbytes / row_nbytes;
+    std::vector<char> in_band(h, 0);
+    for (int64_t r = 0; r < n_rows; ++r) in_band[row_offsets[r] / row_nbytes] = 1;
+    std::vector<RowRun> band, other;
+    row_runs(in_band, 1, &band);
+    row_runs(in_band, 0, &other);
+    int64_t stopped = 0;
+#pragma omp parallel for schedule(dynamic, 8) num_threads(scan_threads()) \
+    reduction(+ : stopped)
     for (int64_t f = 0; f < n_frames; ++f) {
         const uint8_t* s = src + f * frame_nbytes;
-        counts[f] = count_frame<BITS>(s, frame_nbytes, rule, true);
-        uint8_t* d = dst + f * n_rows * row_nbytes;
-        for (int64_t r = 0; r < n_rows; ++r) {
-            const uint8_t* sr = s + row_offsets[r];
-            uint8_t* dr = d + r * row_nbytes;
-            for (int64_t i = 0; i < row_nbytes; ++i) dr[i] = sr[i];
+        copy_rows(s, row_offsets, n_rows, row_nbytes,
+                  dst + f * n_rows * row_nbytes);
+        int32_t c = 0;
+        int64_t left = h;  // rows not counted
+        for (const RowRun& run : band) {
+            if (c >= cap) break;
+            c += count_frame<BITS>(s + run.first * row_nbytes,
+                                   run.n * row_nbytes, rule, true);
+            left -= run.n;
         }
+        for (const RowRun& run : other) {
+            for (int64_t r = run.first; r < run.first + run.n && c < cap;
+                 ++r, --left)
+                c += count_frame<BITS>(s + r * row_nbytes, row_nbytes, rule,
+                                       true);
+        }
+        stopped += left > 0;
+        counts[f] = c < cap ? c : cap;
     }
+    return stopped;
 }
 
 extern "C" {
@@ -354,16 +432,19 @@ void count_above_scalar(const uint8_t* __restrict src, int64_t n_frames,
 // "scalar". Every other depth takes the scalar integer loop.
 const char* native_count_path() { return COUNT12_PATH; }
 
+// The band rows, min(count, cap) per frame, and the frames whose count
+// stopped before their last row (see gather_count above). frame_nbytes is
+// a whole number of rows; INT32_MAX as cap gives exact counts.
 #define GATHER_COUNT(BITS)                                                  \
-void gather_count##BITS(const uint8_t* __restrict src, int64_t n_frames,    \
-                        int64_t frame_nbytes,                               \
-                        const int64_t* __restrict row_offsets,              \
-                        int64_t n_rows, int64_t row_nbytes,                 \
-                        float background, float threshold,                  \
-                        uint8_t* __restrict dst,                            \
-                        int32_t* __restrict counts) {                       \
-    gather_count<BITS>(src, n_frames, frame_nbytes, row_offsets, n_rows,    \
-                       row_nbytes, background, threshold, dst, counts);     \
+int64_t gather_count##BITS(                                                 \
+        const uint8_t* __restrict src, int64_t n_frames,                    \
+        int64_t frame_nbytes, const int64_t* __restrict row_offsets,        \
+        int64_t n_rows, int64_t row_nbytes, float background,               \
+        float threshold, int32_t cap, uint8_t* __restrict dst,              \
+        int32_t* __restrict counts) {                                       \
+    return gather_count<BITS>(src, n_frames, frame_nbytes, row_offsets,     \
+                              n_rows, row_nbytes, background, threshold,    \
+                              cap, dst, counts);                            \
 }
 GATHER_COUNT(8)
 GATHER_COUNT(10)
@@ -383,12 +464,8 @@ void gather_rows(const uint8_t* __restrict src, int64_t n_frames,
 #pragma omp parallel for schedule(static) num_threads(scan_threads())
     for (int64_t f = 0; f < n_frames; ++f) {
         const uint8_t* s = src + f * frame_nbytes;
-        uint8_t* d = dst + f * n_rows * row_nbytes;
-        for (int64_t r = 0; r < n_rows; ++r) {
-            const uint8_t* sr = s + row_offsets[r];
-            uint8_t* dr = d + r * row_nbytes;
-            for (int64_t i = 0; i < row_nbytes; ++i) dr[i] = sr[i];
-        }
+        copy_rows(s, row_offsets, n_rows, row_nbytes,
+                  dst + f * n_rows * row_nbytes);
     }
 }
 

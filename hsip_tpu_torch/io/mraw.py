@@ -297,15 +297,21 @@ class MRAWReader:
         background: float,
         threshold: float,
         out: Optional[np.ndarray] = None,
+        cap: Optional[int] = None,
     ):
         """Fused staging pass: :meth:`band_bytes` + :meth:`count_above` in
         ONE sweep over the packed payload (the native codec's
         ``gather_count*``), so host DRAM traffic for staging is paid once.
 
-        Returns ``(band, counts)`` — identical values to the separate
-        calls — or ``None`` when the fused native pass is unavailable
-        (no native codec, unsupported depth, or a stale cached ``.so``);
-        callers then fall back to the two-pass staging.
+        Returns ``(band, counts, stopped)`` — the band and counts of the
+        separate calls, and 0 — or ``None`` when the fused native pass is
+        unavailable (no native codec, unsupported depth, or a stale cached
+        ``.so``); callers then fall back to the two-pass staging.
+
+        With ``cap``, ``counts`` is ``min(count, cap)``: each frame's count
+        stops once it reaches ``cap``, and ``stopped`` is the number of
+        frames that stopped before their last row
+        (:meth:`NativeDecoder.gather_rows_count`).
         """
         if (
             self._native is None
@@ -325,7 +331,7 @@ class MRAWReader:
         stop = min(stop, self._total_frames)
         return self._native.gather_rows_count(
             self._mmap[start:stop], self._frame_nbytes, rows * rnb, rnb,
-            background, threshold, self.bit_depth, out=out,
+            background, threshold, self.bit_depth, out=out, cap=cap,
         )
 
     def count_above(

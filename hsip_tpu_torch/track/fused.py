@@ -6,7 +6,9 @@ module runs a group of same-shape recordings as ONE device program:
 
 1. HOST: per-video band gather + packed noise counts (the native codec),
    straight into one pinned staging buffer; each video's bytes then go to
-   the device with an asynchronous copy on a copy stream.
+   the device with an asynchronous copy on a copy stream. The counts only
+   decide which frames are empty, so each frame's count stops once it
+   reaches the least count that makes the frame non-empty.
 2. DEVICE, on the compute stream, every launch asynchronous: unpack the
    packed bits video by video, subtract each video's background, the band
    chain over the flat ``(V * n, B, W)`` batch with per-video priors (the
@@ -147,6 +149,48 @@ def count_fused_frames(stage_times, n_frames: int, bit_depth: int) -> None:
     vector = native_decoder().vector_count(bit_depth)
     stage_times.count("frames_counted", n_frames)
     stage_times.count("frames_counted_vector", n_frames if vector else 0)
+
+
+def _capped_gather(video, start: int, stop: int, rows, background: float,
+                   threshold: float, out, cap: Optional[int]):
+    """The fused gather+count of frames ``[start, stop)`` of a
+    ``PhotonVideo``, each frame's count stopped at ``cap``:
+    ``(band, counts, stopped)`` of ``MRAWReader.band_bytes_and_counts``,
+    or None where the fused pass is unavailable.
+
+    ``PhotonVideo.band_bytes_and_counts`` takes no ``cap``: ``video.py``
+    keeps the original package's code line for line, which
+    ``tests/test_torch_surface.py::
+    test_video_copy_has_the_originals_code_and_its_own_words`` holds. So
+    this one place reaches the video's reader (ROADMAP D.1 moves it back
+    onto the video's own pass once that test lets the copy differ).
+    """
+    return video._require_reader().band_bytes_and_counts(
+        start, stop, rows, background, threshold, out=out, cap=cap
+    )
+
+
+def empty_count_cap(total_pixels: int,
+                    min_fraction: float) -> Optional[int]:
+    """The least count ``c`` in ``[0, total_pixels]`` that makes a frame
+    non-empty by the empty-frame rule ``c / float(total_pixels) <
+    min_fraction``, from that expression itself; None when no count does.
+
+    The rule is monotone in the count, so ``min(count, cap)`` decides every
+    frame as its count does: the fused library's gather may stop a frame's
+    count once it reaches the cap.
+    """
+    total = float(total_pixels)
+    if total_pixels / total < min_fraction:
+        return None
+    lo, hi = 0, total_pixels
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if mid / total < min_fraction:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
 
 
 _COPY_STREAMS: dict = {}
@@ -384,7 +428,9 @@ def track_uniform_videos_fused(
     frames of every group), ``frames_copied`` (the rows copied to the
     device after the clip), ``clipped_groups``, and from the gather threads
     ``frames_counted`` and ``frames_counted_vector``
-    (:func:`count_fused_frames`).
+    (:func:`count_fused_frames`) and ``frames_count_capped``: the frames
+    whose count stopped before their last row at the cap of
+    :func:`empty_count_cap`.
     """
     from ..kernels.cuda_preprocess import cuda_band_profiles
     from ..kernels.preprocess import band_folds, band_margin, reflect_indices
@@ -440,6 +486,8 @@ def track_uniform_videos_fused(
 
     rows = reflect_indices(h // 2, margin, h)
     rnb = w * depth0 // 8
+    # The counts decide only `empty` below, so each stops at the cap.
+    cap = empty_count_cap(h * w, MIN_SIGNAL_FRACTION)
     on_card = slots[0].type == "cuda"
 
     def _stage_dispatch_group(group: List[int], dev: torch.device,
@@ -481,14 +529,15 @@ def track_uniform_videos_fused(
                 bgs[i] = bg
                 noise = max(NOISE_THRESHOLD_FLOOR, bg * 0.5)
                 # Fused native pass: band rows AND counts in ONE sweep over
-                # the packed payload. Falls back to the two-pass shape only
-                # on a stale native library / exotic container.
-                fused_rc = video.band_bytes_and_counts(
-                    0, n, rows, bg, noise, out=big[i, :n]
-                )
+                # the packed payload, each frame's count stopped at the
+                # cap. Falls back to the two-pass shape only on a stale
+                # native library / exotic container.
+                fused_rc = _capped_gather(video, 0, n, rows, bg, noise,
+                                          big[i, :n], cap)
                 if fused_rc is not None:
                     counts_done[i] = fused_rc[1]
                     count_fused_frames(stage_times, n, depth0)
+                    stage_times.count("frames_count_capped", fused_rc[2])
                 else:
                     count_futs[i] = count_pool.submit(
                         stage_times.wrap("counts_host", count_fn), 0, n, bg,

@@ -390,7 +390,7 @@ def _compute_profiles_sharded(
                                                  background_scalar, noise_threshold)
                      for r in _runs(idxs)]
             if all(p is not None for p in parts):
-                band, counts = (parts[0] if len(parts) == 1 else
+                band, counts = (parts[0][:2] if len(parts) == 1 else
                                 (np.concatenate([p[0] for p in parts]),
                                  np.concatenate([p[1] for p in parts])))
                 count_fused_frames(stage_times, counts.size, depth)

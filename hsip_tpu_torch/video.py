@@ -496,9 +496,11 @@ class PhotonVideo:
         out: Optional[np.ndarray] = None,
     ):
         """Fused staging pass: band rows AND above-noise counts in ONE
-        sweep over the packed payload (``(band, counts)``; ``None`` when
-        the fused native path is unavailable — callers fall back to
-        :meth:`band_bytes` + :meth:`count_above`)."""
+        sweep over the packed payload (``(band, counts, stopped)``, the
+        counts exact and ``stopped`` 0; ``None`` when the fused native
+        path is unavailable — callers fall back to :meth:`band_bytes` +
+        :meth:`count_above`). A capped count is the reader's
+        (``MRAWReader.band_bytes_and_counts``)."""
         return self._require_reader().band_bytes_and_counts(
             start, stop, rows, background, threshold, out=out
         )

@@ -84,7 +84,9 @@ def test_native_codec_matches(depth):
     for d in (jd, pd):
         assert d.has_gather_count
     jb, jc = jd.gather_rows_count(packed, fbytes, rows, row_nbytes, 100.0, 50.0, depth)
-    pb, pc = pd.gather_rows_count(packed, fbytes, rows, row_nbytes, 100.0, 50.0, depth)
+    pb, pc, stopped = pd.gather_rows_count(packed, fbytes, rows, row_nbytes, 100.0, 50.0,
+                                           depth)
+    assert stopped == 0
     np.testing.assert_array_equal(pb, jb)
     np.testing.assert_array_equal(pc, jc)
     np.testing.assert_array_equal(
@@ -220,6 +222,176 @@ def test_count_paths_match_the_float_rule(count_decoders, tmp_path, depth, case)
             unmap()
 
 
+# ---- _native: the capped gather+count of the fused library ----
+
+_CAP_H, _CAP_W, _CAP_N = 12, 64, 6
+_CAP_BAND = [5, 6, 7]  # the band rows of most cases
+_CAP_BG, _CAP_THR = 100.0, 50.0  # a pixel counts from code 151 on
+
+
+def _cap_signal(case, rng):
+    """(counting-pixel mask (n, h, w), band rows, cap) of one case."""
+    n, h, w = _CAP_N, _CAP_H, _CAP_W
+    mask = np.zeros((n, h, w), bool)
+    band, cap = list(_CAP_BAND), 10
+    outside = [r for r in range(h) if r not in band]
+    if case == "random":
+        mask = rng.random((n, h, w)) < rng.uniform(0.0, 0.03, (n, 1, 1))
+    elif case == "inside_band":
+        for f in range(n):
+            mask[f, band] = rng.random((len(band), w)) < 0.02 * f
+    elif case == "outside_band":
+        for f in range(n):
+            mask[f, outside] = rng.random((len(outside), w)) < 0.01 * f
+    elif case == "last_pixel":
+        mask[1::2, h - 1, w - 1] = True
+        cap = 1
+    elif case in ("cap_minus_1", "cap", "cap_plus_1"):
+        k = cap + {"cap_minus_1": -1, "cap": 0, "cap_plus_1": 1}[case]
+        for f in range(n):  # k pixels, the last of them on the last row
+            flat = np.sort(rng.choice(h * w - 1, k - 1, replace=False))
+            mask[f].reshape(-1)[np.append(flat, h * w - 1)] = True
+    elif case == "folding_band":
+        band = [2, 1, 0, 0, 1, 2, 3]  # a reflect band folding at row 0
+        mask = rng.random((n, h, w)) < 0.004
+    elif case == "cap_zero":
+        mask = rng.random((n, h, w)) < 0.01
+        cap = 0
+    elif case == "cap_above_every_count":
+        mask = rng.random((n, h, w)) < 0.5
+        cap = h * w + 5
+    return mask, np.array(band, np.int64), cap
+
+
+def _capped_model(mask, band, cap):
+    """The capped pass's counts and stopped frames, row by row in its
+    order: the band's distinct rows run by run, then the other rows."""
+    rows = mask.sum(2)
+    h = rows.shape[1]
+    distinct = sorted(set(band.tolist()))
+    runs = [[r] for r in distinct[:1]]
+    for r in distinct[1:]:
+        if r == runs[-1][-1] + 1:
+            runs[-1].append(r)
+        else:
+            runs.append([r])
+    order = runs + [[r] for r in range(h) if r not in distinct]
+    counts, stopped = [], 0
+    for frame in rows:
+        c, left = 0, h
+        for run in order:
+            if c >= cap:
+                break
+            c += int(frame[run].sum())
+            left -= len(run)
+        counts.append(min(c, cap))
+        stopped += left > 0
+    return np.array(counts), stopped
+
+
+_CAP_CASES = ["random", "inside_band", "outside_band", "last_pixel", "cap_minus_1",
+              "cap", "cap_plus_1", "folding_band", "cap_zero", "cap_above_every_count",
+              "mapped_to_the_end"]
+
+
+@pytest.mark.parametrize("case", _CAP_CASES)
+@pytest.mark.parametrize("depth", DEPTHS)
+def test_capped_count_matches_the_exact_pass(count_decoders, tmp_path, depth, case):
+    """Every build's capped pass copies the band rows of the exact fused
+    pass byte for byte, counts min(exact, cap), decides every frame's
+    count >= cap as the exact count does, and stops the frames it should."""
+    rng = np.random.default_rng(depth * 31 + _CAP_CASES.index(case))
+    mask, band, cap = _cap_signal("random" if case == "mapped_to_the_end" else case, rng)
+    frames = rng.integers(0, 151, mask.shape).astype(np.uint16)
+    frames[mask] = rng.integers(151, 1 << depth, int(mask.sum()))
+    packed = _pack(frames, depth)
+    fbytes = packed.size // _CAP_N
+    rnb = fbytes // _CAP_H
+    unmap = None
+    if case == "mapped_to_the_end":  # whole pages, so the frames end where the map does
+        pages = 4096 // np.gcd(4096, fbytes)
+        frames = np.concatenate([frames] * pages)
+        mask = np.concatenate([mask] * pages)
+        packed = _pack(frames, depth)
+        path = tmp_path / "payload.mraw"
+        packed.tofile(path)
+        packed, unmap = _map_with_guard_page(path, packed.size)
+    want, want_stopped = _capped_model(mask, band, cap)
+    try:
+        for name, d in count_decoders.items():
+            band_x, exact, none_stopped = d.gather_rows_count(
+                packed, fbytes, band * rnb, rnb, _CAP_BG, _CAP_THR, depth)
+            band_c, capped, stopped = d.gather_rows_count(
+                packed, fbytes, band * rnb, rnb, _CAP_BG, _CAP_THR, depth, cap=cap)
+            assert none_stopped == 0, name
+            np.testing.assert_array_equal(exact, mask.reshape(len(mask), -1).sum(1))
+            np.testing.assert_array_equal(band_c, band_x, err_msg=name)
+            np.testing.assert_array_equal(capped, np.minimum(exact, cap), err_msg=name)
+            np.testing.assert_array_equal(capped >= cap, exact >= cap, err_msg=name)
+            np.testing.assert_array_equal(capped, want, err_msg=name)
+            assert stopped == want_stopped, name
+    finally:
+        if unmap is not None:
+            del packed
+            unmap()
+
+
+@pytest.mark.parametrize("geometry", ["part_row", "part_pixel_group", "offset_mid_row"])
+def test_fused_pass_refuses_rows_it_cannot_count(geometry):
+    """The fused pass counts row by row, so it takes frames of whole rows of
+    whole pixel groups with offsets on row starts, and refuses the rest."""
+    d = port_native.native_decoder()
+    fbytes, rnb, rows = {"part_row": (100, 30, [0]),
+                         "part_pixel_group": (96, 8, [0]),
+                         "offset_mid_row": (96, 24, [12])}[geometry]
+    packed = np.zeros(2 * fbytes, np.uint8)
+    with pytest.raises(ValueError):
+        d.gather_rows_count(packed, fbytes, np.array(rows, np.int64), rnb, 1.0, 1.0, 12)
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+def test_band_bytes_and_counts_with_a_cap(tmp_path, depth):
+    """The reader's fused pass: without a cap the exact pair, with one the
+    same band, min(count, cap) and the frames that stopped early.
+    PhotonVideo's pass, a copy of the original's, stays the exact one."""
+    rng = np.random.default_rng(depth)
+    frames = rng.integers(0, 1 << depth, (9, 16, 64)).astype(np.uint16)
+    frames[:3] = 0  # dark frames are read whole
+    spec = port_io.CihxSpec(width=64, height=16, total_frames=9,
+                            record_rate=100_000, bit_depth=depth)
+    meta = port_io.write_recording(tmp_path, f"run-{depth}-001", frames, spec=spec)
+    rows = np.arange(6, 11, dtype=np.int32)
+    with hsip_tpu_torch.open_video(str(meta)) as v:
+        band, exact, none_stopped = v.band_bytes_and_counts(0, 9, rows, 10.0, 5.0)
+        reader = v._require_reader()
+        band_r, exact_r, _ = reader.band_bytes_and_counts(0, 9, rows, 10.0, 5.0)
+        band_c, capped, stopped = reader.band_bytes_and_counts(0, 9, rows, 10.0, 5.0,
+                                                               cap=40)
+    np.testing.assert_array_equal(band_r, band)
+    np.testing.assert_array_equal(exact_r, exact)
+    assert none_stopped == 0
+    np.testing.assert_array_equal(band_c, band)
+    np.testing.assert_array_equal(exact, _float_rule_counts(frames, 10.0, 5.0))
+    np.testing.assert_array_equal(capped, np.minimum(exact, 40))
+    assert stopped == int((exact[3:] >= 40).sum()) == 6
+
+
+def test_empty_count_cap_is_the_least_non_empty_count():
+    from hsip_tpu_torch.track.fused import empty_count_cap
+
+    assert empty_count_cap(128 * 1024, port_scan.MIN_SIGNAL_FRACTION) == 66
+    for h, w in ((40, 100), (64, 256)):
+        cap = empty_count_cap(h * w, port_scan.MIN_SIGNAL_FRACTION)
+        counts = np.arange(h * w + 1, dtype=np.int64)
+        # the fused library's rule (track/fused.py, group_meta), verbatim
+        empty = counts / float(h * w) < port_scan.MIN_SIGNAL_FRACTION
+        np.testing.assert_array_equal(empty, counts < cap)
+        np.testing.assert_array_equal(empty, np.minimum(counts, cap) / float(h * w)
+                                      < port_scan.MIN_SIGNAL_FRACTION)
+    assert empty_count_cap(64, 0.0) == 0
+    assert empty_count_cap(64, 1.5) is None
+
+
 # ---- io: synthetic recordings, CIHX parse, MRAW decode ----
 
 @pytest.mark.parametrize("depth", DEPTHS)
@@ -321,7 +493,8 @@ def test_video_matches(flame_recording):
         np.testing.assert_array_equal(vp.read_batch(0, 4), vj.read_batch(0, 4))
         rows = np.arange(28, 37, dtype=np.int32)
         np.testing.assert_array_equal(vp.band_bytes(2, 9, rows), vj.band_bytes(2, 9, rows))
-        band_p, cnt_p = vp.band_bytes_and_counts(2, 9, rows, 60.0, 30.0)
+        band_p, cnt_p, stopped = vp.band_bytes_and_counts(2, 9, rows, 60.0, 30.0)
+        assert stopped == 0
         band_j, cnt_j = vj.band_bytes_and_counts(2, 9, rows, 60.0, 30.0)
         np.testing.assert_array_equal(band_p, band_j)
         np.testing.assert_array_equal(cnt_p, cnt_j)

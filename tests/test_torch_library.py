@@ -475,6 +475,68 @@ def test_clip_skips_dark_ranges_bit_identically(tmp_path, monkeypatch):
     assert _counts(times)["clipped_groups"] > 0
 
 
+def _stopped_at_the_cap(frames, band, cap):
+    """Frames of one recording whose count, band rows first and then the
+    other rows in order, reaches ``cap`` before the last row, under the
+    fused library's noise rule (its background: frame 0's maximum)."""
+    from hsip_tpu_torch.track.scan import NOISE_THRESHOLD_FLOOR
+
+    bg = float(np.max(frames[0]))
+    noise = max(NOISE_THRESHOLD_FLOOR, bg * 0.5)
+    v = np.maximum(frames.astype(np.float32) - np.float32(bg), np.float32(0))
+    rows = (v > np.float32(noise)).sum(2)
+    band = sorted(set(int(r) for r in band))
+    order = [rows[:, band].sum(1)] + [rows[:, r] for r in range(rows.shape[1])
+                                      if r not in band]
+    reached = np.cumsum(order, axis=0) >= cap
+    return int(reached[:-1].any(axis=0).sum())
+
+
+def test_capped_counts_decide_frames_as_the_exact_counts(tmp_path):
+    """The fused library stops each frame's count at the cap
+    (``empty_count_cap``). On a recording with a dark preamble and tail and
+    one whose only signal lies outside the band rows, its rows, empty
+    frames and tables equal the JAX library's and the port's per-file run's
+    (both count every pixel), and the frames it stopped early are counted."""
+    from hsip_tpu_torch.kernels.preprocess import band_margin, reflect_indices
+    from hsip_tpu_torch.track.scan import MIN_SIGNAL_FRACTION
+
+    d = tmp_path / "v"
+    h, w, n = 64, 384, 40
+    spec = CihxSpec(width=w, height=h, total_frames=n, record_rate=100_000,
+                    bit_depth=12)
+    det = FlameDetectorConfig()
+    band = reflect_indices(h // 2, band_margin(det.morphology_kernel_size,
+                                               det.gaussian_sigma), h)
+    # Dark preamble and dark tail: the flame burns frames 12..29 only.
+    flame = FlameSpec(x0=25.0, v0_px=w / 30, accel_px=0.0, ignition_frame=12,
+                      seed=71)
+    lit, _ = synthesize_flame_video(n, height=h, width=w, flame=flame)
+    lit[30:] = lit[0]
+    # Two dark frames with cap - 1 and cap bright pixels, the last on the
+    # frame's last row: empty and not empty.
+    cap = port_fused.empty_count_cap(h * w, MIN_SIGNAL_FRACTION)
+    for f, k in ((33, cap - 1), (36, cap)):
+        lit[f].reshape(-1)[np.linspace(0, h * w - 1, k).astype(int)] = 4000
+    write_recording(d, "nova-run-1-001", lit, spec=spec)
+    # Signal outside the band rows only: the band keeps frame 0's dark rows.
+    flame = FlameSpec(x0=25.0, v0_px=w / 50, accel_px=0.0, ignition_frame=4,
+                      seed=72)
+    off_band, _ = synthesize_flame_video(n, height=h, width=w, flame=flame)
+    off_band[:, band, :] = off_band[0, band, :]
+    write_recording(d, "nova-run-2-001", off_band, spec=spec)
+
+    got = _check_against_both(d, tmp_path)
+    assert got[0].empty_frame_count == 12 + 10 - 1
+    times = StageTimes()
+    _assert_same(_port_library(d, stage_times=times), got)
+    counts = _counts(times)
+    assert counts["frames_counted"] == 2 * n
+    assert counts["frames_count_capped"] == (_stopped_at_the_cap(lit, band, cap)
+                                             + _stopped_at_the_cap(off_band, band, cap))
+    assert 0 < counts["frames_count_capped"] < 2 * n
+
+
 def test_clip_stands_down_on_a_dense_batch(tmp_path):
     d = tmp_path / "v"
     _write(d, "nova-run-1-001", seed=60)
