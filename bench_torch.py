@@ -485,10 +485,8 @@ def run_bench(args, config, device: torch.device):
             detail["library_payload"] = "hard-linked (shared page cache)"
             detail["library_end_to_end_s"] = best_l
             detail["library_stages"] = best_st_l.as_dict(6)
-            # The host side of staging: the fused native gather+count pass
-            # (read_gather; counts_host only on the two-pass fallback).
-            host_s = (detail["library_stages"].get("read_gather", 0.0)
-                      + detail["library_stages"].get("counts_host", 0.0))
+            # The host side of staging: the fused native gather+count pass.
+            host_s = detail["library_stages"].get("read_gather", 0.0)
             if host_s > 0:
                 line["host_staging_fps"] = round(total_frames / host_s, 1)
             print(f"library: videos={args.videos} frames={total_frames} "

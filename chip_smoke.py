@@ -1065,12 +1065,12 @@ def mesh_phase(tmp, meta, lib8, want8, dev_tables, card, config, rng):
     tv_launches = {}
     with open_video(str(meta)) as video:
         bg = float(np.max(video[0]))
-        _packed, read_band, count_fn, depth = video.staging_paths()
+        _packed, read_band, _count_fn, depth = video.staging_paths()
         single = compute_profiles_batched(
             video.read_batch, len(video), video.frame_shape, bg, config,
-            chunk_size=4096, read_band=read_band, count_fn=count_fn,
-            read_band_counts=video.band_bytes_and_counts, band_bit_depth=depth,
-            keep_device=True, device=gpu)
+            chunk_size=4096,
+            read_band_counts=video.band_bytes_and_counts if read_band is not None else None,
+            band_bit_depth=depth, keep_device=True, device=gpu)
         for slots in (2, 4):
             mesh = make_mesh("frame", devices=[gpu] * slots)
             sharded = _compute_profiles_sharded(video, bg, config, (), mesh,
@@ -1573,11 +1573,11 @@ def map_phase_lines(meta, config, skip, device):
     from hsip_tpu_torch.track.scan import compute_profiles_batched
 
     with open_video(str(meta)) as video:
-        read_packed, read_band, count_fn, depth = video.staging_paths()
+        read_packed, read_band, _count_fn, depth = video.staging_paths()
         return compute_profiles_batched(
             video.read_batch, len(video), video.frame_shape, float(np.max(video[0])),
             config, skip_frames=skip, chunk_size=4096 if read_band is not None else 256,
-            read_packed=read_packed, read_band=read_band, count_fn=count_fn,
+            read_packed=read_packed,
             read_band_counts=video.band_bytes_and_counts if read_band is not None else None,
             band_bit_depth=depth, device=device)
 
@@ -2080,11 +2080,10 @@ def main() -> int:
         # ---- phase 4: scan kernel vs plain (incl. the recording's profiles) ----
         with open_video(str(meta)) as video:
             bg = float(np.max(video[0]))
-            read_packed, read_band, count_fn, depth = video.staging_paths()
+            read_packed, read_band, _count_fn, depth = video.staging_paths()
             real = compute_profiles_batched(
                 video.read_batch, len(video), video.frame_shape, bg, config,
-                chunk_size=4096, read_packed=read_packed, read_band=read_band,
-                count_fn=count_fn,
+                chunk_size=4096, read_packed=read_packed,
                 read_band_counts=video.band_bytes_and_counts if read_band else None,
                 band_bit_depth=depth, keep_device=True, device=dev,
             )

@@ -297,27 +297,49 @@ class MRAWReader:
         background: float,
         threshold: float,
         out: Optional[np.ndarray] = None,
-        cap: Optional[int] = None,
     ):
         """Fused staging pass: :meth:`band_bytes` + :meth:`count_above` in
         ONE sweep over the packed payload (the native codec's
         ``gather_count*``), so host DRAM traffic for staging is paid once.
 
-        Returns ``(band, counts, stopped)`` — the band and counts of the
-        separate calls, and 0 — or ``None`` when the fused native pass is
-        unavailable (no native codec, unsupported depth, or a stale cached
-        ``.so``); callers then fall back to the two-pass staging.
-
-        With ``cap``, ``counts`` is ``min(count, cap)``: each frame's count
-        stops once it reaches ``cap``, and ``stopped`` is the number of
-        frames that stopped before their last row
-        (:meth:`NativeDecoder.gather_rows_count`).
+        Returns ``(band, counts)`` — identical values to the separate
+        calls — or ``None`` when the fused native pass is unavailable
+        (no native codec, unsupported depth, or rows that are not
+        byte-aligned).
         """
-        if (
-            self._native is None
-            or self.bit_depth not in (8, 10, 12, 16)
-            or not self._native.has_gather_count
-        ):
+        args = self._band_pass_args(start, stop, rows)
+        if args is None:
+            return None
+        return self._native.gather_rows_count(
+            *args, background, threshold, self.bit_depth, out=out)
+
+    def band_bytes_and_capped_counts(
+        self,
+        start: int,
+        stop: int,
+        rows: np.ndarray,
+        background: float,
+        threshold: float,
+        cap: int,
+        out: Optional[np.ndarray] = None,
+    ):
+        """:meth:`band_bytes_and_counts` with each frame's count stopped
+        once it reaches ``cap``: ``(band, counts, stopped)``, ``counts`` at
+        ``min(count, cap)`` and ``stopped`` the number of frames that
+        stopped before their last row
+        (:meth:`NativeDecoder.gather_rows_capped_count`); ``None`` where
+        :meth:`band_bytes_and_counts` is."""
+        args = self._band_pass_args(start, stop, rows)
+        if args is None:
+            return None
+        return self._native.gather_rows_capped_count(
+            *args, background, threshold, self.bit_depth, cap, out=out)
+
+    def _band_pass_args(self, start: int, stop: int, rows: np.ndarray):
+        """``(payload, frame_nbytes, row_offsets, row_nbytes)`` of a fused
+        band pass over frames [start, stop), or None where the native pass
+        is unavailable."""
+        if self._native is None or self.bit_depth not in (8, 10, 12, 16):
             return None
         self._check_open()
         rnb = self.row_nbytes
@@ -329,10 +351,7 @@ class MRAWReader:
                 f"row indices out of range [0, {self.height}): {rows}"
             )
         stop = min(stop, self._total_frames)
-        return self._native.gather_rows_count(
-            self._mmap[start:stop], self._frame_nbytes, rows * rnb, rnb,
-            background, threshold, self.bit_depth, out=out, cap=cap,
-        )
+        return self._mmap[start:stop], self._frame_nbytes, rows * rnb, rnb
 
     def count_above(
         self, start: int, stop: int, background: float, threshold: float
@@ -341,8 +360,6 @@ class MRAWReader:
         (native 8/10/12/16-bit fast paths; None when unavailable)."""
         if self._native is None or self.bit_depth not in (8, 10, 12, 16):
             return None
-        if self.bit_depth == 8 and not self._native.has_count8:
-            return None  # stale cached .so without the 8-bit symbol
         self._check_open()
         counter = {
             8: self._native.count_above_8bit,

@@ -334,13 +334,13 @@ def _track_uniform_videos(
 
     # --- map phase per video (chunked, packed on-device decode), on its
     # slot's device ---
-    # A small thread pool overlaps one video's HOST work (native counts +
-    # band gather, both GIL-releasing) with another's transfer and device
-    # work. Order is preserved via executor.map.
+    # A small thread pool overlaps one video's HOST work (the native fused
+    # band gather and count, GIL-releasing) with another's transfer and
+    # device work. Order is preserved via executor.map.
     def _map_one(i) -> FrameProfiles:
         video = videos[i]
         bg = float(np.max(video[0]))
-        read_packed, read_band, count_fn, storage_depth = video.staging_paths()
+        read_packed, read_band, _count_fn, storage_depth = video.staging_paths()
         cs = chunk_size or (4096 if read_band is not None else 256)
         return compute_profiles_batched(
             read_batch=video.read_batch,
@@ -353,8 +353,6 @@ def _track_uniform_videos(
             ),
             chunk_size=cs,
             read_packed=read_packed,
-            read_band=read_band,
-            count_fn=count_fn,
             read_band_counts=(
                 video.band_bytes_and_counts if read_band is not None else None
             ),

@@ -151,25 +151,6 @@ def count_fused_frames(stage_times, n_frames: int, bit_depth: int) -> None:
     stage_times.count("frames_counted_vector", n_frames if vector else 0)
 
 
-def _capped_gather(video, start: int, stop: int, rows, background: float,
-                   threshold: float, out, cap: Optional[int]):
-    """The fused gather+count of frames ``[start, stop)`` of a
-    ``PhotonVideo``, each frame's count stopped at ``cap``:
-    ``(band, counts, stopped)`` of ``MRAWReader.band_bytes_and_counts``,
-    or None where the fused pass is unavailable.
-
-    ``PhotonVideo.band_bytes_and_counts`` takes no ``cap``: ``video.py``
-    keeps the original package's code line for line, which
-    ``tests/test_torch_surface.py::
-    test_video_copy_has_the_originals_code_and_its_own_words`` holds. So
-    this one place reaches the video's reader (ROADMAP D.1 moves it back
-    onto the video's own pass once that test lets the copy differ).
-    """
-    return video._require_reader().band_bytes_and_counts(
-        start, stop, rows, background, threshold, out=out, cap=cap
-    )
-
-
 def empty_count_cap(total_pixels: int,
                     min_fraction: float) -> Optional[int]:
     """The least count ``c`` in ``[0, total_pixels]`` that makes a frame
@@ -417,8 +398,8 @@ def track_uniform_videos_fused(
     no host copy is made for it. Outputs stay bit-identical because the
     scan hard-gates empty rows.
 
-    ``stage_times`` stages: ``read_gather`` (and ``counts_host`` on the
-    two-pass degrade) in the gather threads; on the calling thread
+    ``stage_times`` stages: ``read_gather`` in the gather threads; on the
+    calling thread
     ``pool_take`` (the group's staging buffer), ``gather_wait`` (the wait
     for the group's gathers, with their pools), ``group_meta`` (the scan
     metadata and the clip's ranges), ``h2d``, ``device_dispatch``, ``d2h``,
@@ -454,12 +435,12 @@ def track_uniform_videos_fused(
     for v in videos:
         if v.frame_shape != shape0 or len(v) == 0:
             return None
-        _read_packed, read_band, count_fn, depth = v.staging_paths()
-        if read_band is None or count_fn is None:
+        _read_packed, read_band, _count_fn, depth = v.staging_paths()
+        if read_band is None:
             return None
-        staging.append((read_band, count_fn, depth))
-    depth0 = staging[0][2]
-    if any(d != depth0 for _, _, d in staging):
+        staging.append(depth)
+    depth0 = staging[0]
+    if any(d != depth0 for d in staging):
         return None
     h = shape0[0]
     margin = band_margin(config.morphology_kernel_size, config.gaussian_sigma)
@@ -488,6 +469,8 @@ def track_uniform_videos_fused(
     rnb = w * depth0 // 8
     # The counts decide only `empty` below, so each stops at the cap.
     cap = empty_count_cap(h * w, MIN_SIGNAL_FRACTION)
+    if cap is None:  # no count makes a frame non-empty: count exactly
+        cap = np.iinfo(np.int32).max
     on_card = slots[0].type == "cuda"
 
     def _stage_dispatch_group(group: List[int], dev: torch.device,
@@ -504,7 +487,6 @@ def track_uniform_videos_fused(
         trace = {"gather_start_t": time.perf_counter(), "slot": slot,
                  "device": str(dev)}
         g_videos = [videos[i] for i in group]
-        g_staging = [staging[i] for i in group]
         Vg = len(g_videos)
 
         # --- host staging: EVERY video gathers straight into its slice of
@@ -517,46 +499,33 @@ def track_uniform_videos_fused(
             big_t = take_staging((Vg, n_max, B, rnb), pinned=on_card)
         big = big_t.numpy()
         bgs = np.zeros(Vg, np.float32)
-        count_futs = [None] * Vg
-        counts_done = [None] * Vg  # resolved counts from the fused one-pass
+        counts_done = [None] * Vg
 
         def _gather_one(i):
             video = g_videos[i]
-            read_band, count_fn, _d = g_staging[i]
             n = len(video)
             with stage_times.stage("read_gather"):
                 bg = float(np.max(video[0]))
                 bgs[i] = bg
                 noise = max(NOISE_THRESHOLD_FLOOR, bg * 0.5)
-                # Fused native pass: band rows AND counts in ONE sweep over
-                # the packed payload, each frame's count stopped at the
-                # cap. Falls back to the two-pass shape only on a stale
-                # native library / exotic container.
-                fused_rc = _capped_gather(video, 0, n, rows, bg, noise,
-                                          big[i, :n], cap)
-                if fused_rc is not None:
-                    counts_done[i] = fused_rc[1]
-                    count_fused_frames(stage_times, n, depth0)
-                    stage_times.count("frames_count_capped", fused_rc[2])
-                else:
-                    count_futs[i] = count_pool.submit(
-                        stage_times.wrap("counts_host", count_fn), 0, n, bg,
-                        noise,
-                    )
-                    read_band(0, n, rows, out=big[i, :n])
+                # Band rows AND counts in ONE sweep over the packed
+                # payload, each frame's count stopped at the cap. The
+                # video's copy of the original's code has no capped entry.
+                _band, counts_done[i], stopped = (
+                    video._require_reader().band_bytes_and_capped_counts(
+                        0, n, rows, bg, noise, cap, out=big[i, :n]))
+                count_fused_frames(stage_times, n, depth0)
+                stage_times.count("frames_count_capped", stopped)
 
         # The gathers run in worker threads, whose ranges a profiler does
         # not keep: the main thread's wait (pools and all) is the span.
-        with stage_times.stage("gather_wait"), \
-                ThreadPoolExecutor(max_workers=1) as count_pool, \
-                ThreadPoolExecutor(
-                    max_workers=_gather_workers(Vg)) as gather_pool:
+        with stage_times.stage("gather_wait"), ThreadPoolExecutor(
+                max_workers=_gather_workers(Vg)) as gather_pool:
             for fut in [gather_pool.submit(_gather_one, i) for i in range(Vg)]:
                 fut.result()
         trace["gather_end_t"] = time.perf_counter()
 
-        # --- host-side scan metadata (resolves the count futures) and the
-        # clip's ranges ---
+        # --- host-side scan metadata and the clip's ranges ---
         with stage_times.stage("group_meta"):
             fidx = np.zeros((Vg, n_max), np.int32)
             empty = np.ones((Vg, n_max), bool)
@@ -570,11 +539,7 @@ def track_uniform_videos_fused(
                 n = len(video)
                 fidx[i, :n] = np.arange(n, dtype=np.int32)
                 fidx[i, n:] = n + np.arange(n_max - n, dtype=np.int32)
-                counts = np.asarray(
-                    counts_done[i] if counts_done[i] is not None
-                    else count_futs[i].result(),
-                    dtype=np.int64,
-                )
+                counts = np.asarray(counts_done[i], dtype=np.int64)
                 empty[i, :n] = counts / float(h * w) < MIN_SIGNAL_FRACTION
                 # First processed frame has no differencing prior. Named
                 # methods on raw profiles need no prior at all.

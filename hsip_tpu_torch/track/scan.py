@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,9 +59,8 @@ __all__ = [
 @dataclasses.dataclass
 class MapProfiles(FrameProfiles):
     """Map-phase output plus the staging route it took: 'band+counts'
-    (native fused band gather and counts), 'band' (band gather and a
-    separate host count pass), 'packed' (full packed frames), 'decoded'
-    (host-decoded frames) or 'host_exact' (float64 host ops)."""
+    (native fused band gather and counts), 'packed' (full packed frames),
+    'decoded' (host-decoded frames) or 'host_exact' (float64 host ops)."""
 
     staging_route: str = "decoded"
 
@@ -115,8 +113,6 @@ def compute_profiles_batched(
     skip_frames: Sequence[int] = (),
     chunk_size: int = 256,
     read_packed: Optional[Callable[[int, int], np.ndarray]] = None,
-    read_band: Optional[Callable] = None,
-    count_fn: Optional[Callable] = None,
     read_band_counts: Optional[Callable] = None,
     band_bit_depth: int = 12,
     keep_device: bool = False,
@@ -130,7 +126,10 @@ def compute_profiles_batched(
 
     Arguments as in :func:`hsip_tpu.track.scan.compute_profiles_batched`
     (staging callables, chunking, ``keep_device``, ``need_*``,
-    ``progress``, ``stage_times``); ``device`` is the torch device of the
+    ``progress``, ``stage_times``), but one callable selects the band
+    route: ``read_band_counts``, a video's fused
+    ``band_bytes_and_counts``, which the video's ``staging_paths`` allows
+    where it returns a ``read_band``. ``device`` is the torch device of the
     map phase (``None`` means ``cuda``). With ``keep_device`` the (M, W)
     line sets stay on ``device`` as tensors; otherwise they come back as
     numpy arrays. Each chunk carries the previous processed frame at its
@@ -144,7 +143,7 @@ def compute_profiles_batched(
     m = processed.size
     h, w = frame_shape
     noise_threshold = max(NOISE_THRESHOLD_FLOOR, background_scalar * 0.5)
-    use_band = read_band is not None and count_fn is not None
+    use_band = read_band_counts is not None
     k = config.morphology_kernel_size
     sigma = config.gaussian_sigma
     margin = band_margin(k, sigma)
@@ -180,96 +179,67 @@ def compute_profiles_batched(
         pos = stop
 
     def _multi_read_fused(needed):
-        """Fused band+counts staging (skip-gap aware); None when the fused
-        native pass is unavailable (the caller degrades to two passes)."""
+        """Fused band+counts staging of ``needed`` (skip-gap aware)."""
         bands, cnts = [], []
         for r in _runs(needed):
-            res = read_band_counts(int(r[0]), int(r[-1]) + 1, band_rows,
-                                   background_scalar, noise_threshold)
-            if res is None:
-                return None
-            bands.append(res[0])
-            cnts.append(res[1])
+            band, counts = read_band_counts(int(r[0]), int(r[-1]) + 1,
+                                            band_rows, background_scalar,
+                                            noise_threshold)
+            bands.append(band)
+            cnts.append(counts)
         if len(bands) == 1:
             return bands[0], cnts[0]
         return np.concatenate(bands), np.concatenate(cnts)
 
     if stage_times is None:
         stage_times = StageTimes()  # unobserved; keeps the code one-path
-    route = "band+counts" if use_band and read_band_counts is not None else (
-        "band" if use_band else ("packed" if read_packed is not None else "decoded")
+    route = "band+counts" if use_band else (
+        "packed" if read_packed is not None else "decoded"
     )
     pending = []  # (pos, stop, row0, row1, sob, grad, intens, rawc, counts)
-    count_pool = ThreadPoolExecutor(max_workers=1) if use_band else None
-    try:
-        for pos, stop, needed, row0, row1 in chunks:
-            # Row j's prior is row j-1 of the chunk; row 0 has none.
-            prior = torch.arange(-1, row1 - 1, dtype=torch.int32, device=dev)
-            if use_band:
-                # Only the band rows ship; the host counts the above-noise
-                # pixels, fused with the band gather when the codec can.
-                counts = None
-                if read_band_counts is not None:
-                    with stage_times.stage("read_gather"):
-                        fused = _multi_read_fused(needed)
-                    if fused is None:
-                        read_band_counts = None  # stale .so: stop probing
-                        route = "band"
-                    else:
-                        host, counts = fused
-                        count_fused_frames(stage_times, counts.size,
-                                           band_bit_depth)
-                if counts is None:
-                    # Two-pass: the native count pass (releases the GIL)
-                    # runs beside the band gather and the transfer.
-                    counts = count_pool.submit(
-                        stage_times.wrap("counts_host", _multi_read),
-                        lambda a, b: count_fn(a, b, background_scalar,
-                                              noise_threshold),
-                        needed,
-                    )
-                    with stage_times.stage("read_gather"):
-                        host = np.ascontiguousarray(_multi_read(
-                            lambda a, b: read_band(a, b, band_rows), needed
-                        ))
-                with stage_times.stage("h2d"):
-                    staged = _stage(host, dev, stage_times)
-                with stage_times.stage("device_dispatch"):
-                    sob, grad, intens, rawc = packed_band_profiles(
-                        staged, bg32, prior, thr32,
+    for pos, stop, needed, row0, row1 in chunks:
+        # Row j's prior is row j-1 of the chunk; row 0 has none.
+        prior = torch.arange(-1, row1 - 1, dtype=torch.int32, device=dev)
+        if use_band:
+            # Only the band rows ship; the host counts the above-noise
+            # pixels in the same pass as the band gather.
+            with stage_times.stage("read_gather"):
+                host, counts = _multi_read_fused(needed)
+            count_fused_frames(stage_times, counts.size, band_bit_depth)
+            with stage_times.stage("h2d"):
+                staged = _stage(host, dev, stage_times)
+            with stage_times.stage("device_dispatch"):
+                sob, grad, intens, rawc = packed_band_profiles(
+                    staged, bg32, prior, thr32,
+                    morphology_kernel_size=k, gaussian_sigma=sigma,
+                    bit_depth=band_bit_depth,
+                )
+        else:
+            with stage_times.stage("read_gather"):
+                host = _multi_read(
+                    read_packed if read_packed is not None else read_batch,
+                    needed,
+                )
+            with stage_times.stage("h2d"):
+                staged = _stage(host, dev, stage_times)
+            with stage_times.stage("device_dispatch"):
+                if read_packed is not None:
+                    sob, grad, intens, rawc, counts = packed_centerline_profiles(
+                        staged, h, w, bg32, prior, thr32, noise32,
                         morphology_kernel_size=k, gaussian_sigma=sigma,
                         bit_depth=band_bit_depth,
                     )
-            else:
-                with stage_times.stage("read_gather"):
-                    host = _multi_read(
-                        read_packed if read_packed is not None else read_batch,
-                        needed,
+                else:
+                    sob, grad, intens, rawc, counts = batch_centerline_profiles(
+                        staged, bg32, prior, thr32, noise32,
+                        morphology_kernel_size=k, gaussian_sigma=sigma,
                     )
-                with stage_times.stage("h2d"):
-                    staged = _stage(host, dev, stage_times)
-                with stage_times.stage("device_dispatch"):
-                    if read_packed is not None:
-                        sob, grad, intens, rawc, counts = packed_centerline_profiles(
-                            staged, h, w, bg32, prior, thr32, noise32,
-                            morphology_kernel_size=k, gaussian_sigma=sigma,
-                            bit_depth=band_bit_depth,
-                        )
-                    else:
-                        sob, grad, intens, rawc, counts = batch_centerline_profiles(
-                            staged, bg32, prior, thr32, noise32,
-                            morphology_kernel_size=k, gaussian_sigma=sigma,
-                        )
-            del staged, host
-            pending.append((pos, stop, row0, row1, sob, grad, intens, rawc, counts))
-            if progress is not None:
-                progress(stop, m)
-    finally:
-        if count_pool is not None:
-            count_pool.shutdown(wait=False)
+        del staged, host
+        pending.append((pos, stop, row0, row1, sob, grad, intens, rawc, counts))
+        if progress is not None:
+            progress(stop, m)
 
     def _counts_of(c):
-        c = c.result() if hasattr(c, "result") else c
         return c.cpu().numpy() if isinstance(c, torch.Tensor) else np.asarray(c)
 
     signal_counts = np.zeros(m, dtype=np.int64)
@@ -378,27 +348,20 @@ def _compute_profiles_sharded(
     thr32 = float(np.float32(config.frame_diff_threshold))
     chunk = max(n_shards, frames_per_shard * n_shards)
     band_rows = reflect_indices(h // 2, margin, h)
-    _read_packed, read_band, count_fn, depth = video.staging_paths()
-    use_band = read_band is not None and count_fn is not None
+    _read_packed, read_band, _count_fn, depth = video.staging_paths()
+    use_band = read_band is not None
     route = "band+counts" if use_band else "decoded"
     profile_fn = None if use_band else make_sharded_profile_fn(mesh, h, w, k, sigma)
 
     def _band_and_counts(idxs):
-        nonlocal route
-        if route == "band+counts":
-            parts = [video.band_bytes_and_counts(int(r[0]), int(r[-1]) + 1, band_rows,
-                                                 background_scalar, noise_threshold)
-                     for r in _runs(idxs)]
-            if all(p is not None for p in parts):
-                band, counts = (parts[0][:2] if len(parts) == 1 else
-                                (np.concatenate([p[0] for p in parts]),
-                                 np.concatenate([p[1] for p in parts])))
-                count_fused_frames(stage_times, counts.size, depth)
-                return band, counts
-            route = "band"  # stale native library: two passes from here on
-        counts = _multi_read(
-            lambda a, b: count_fn(a, b, background_scalar, noise_threshold), idxs)
-        return _multi_read(lambda a, b: read_band(a, b, band_rows), idxs), counts
+        parts = [video.band_bytes_and_counts(int(r[0]), int(r[-1]) + 1, band_rows,
+                                             background_scalar, noise_threshold)
+                 for r in _runs(idxs)]
+        band, counts = (parts[0] if len(parts) == 1 else
+                        (np.concatenate([p[0] for p in parts]),
+                         np.concatenate([p[1] for p in parts])))
+        count_fused_frames(stage_times, counts.size, depth)
+        return band, counts
 
     pending = []  # (start, stop, off, sob, grad, intens, raw, counts): slot lists
     start = 0
@@ -642,7 +605,7 @@ def track_video(
             **sharded_kwargs,
         )
     else:
-        read_packed, read_band, count_fn, storage_depth = video.staging_paths()
+        read_packed, read_band, _count_fn, storage_depth = video.staging_paths()
         if chunk_size is None:
             chunk_size = 4096 if read_band is not None else 256
         profiles = compute_profiles_batched(
@@ -654,8 +617,6 @@ def track_video(
             skip_frames=skip_frames,
             chunk_size=chunk_size,
             read_packed=read_packed,
-            read_band=read_band,
-            count_fn=count_fn,
             read_band_counts=(
                 video.band_bytes_and_counts if read_band is not None else None
             ),

@@ -469,7 +469,7 @@ class PhotonVideo:
         if reader is None or reader._native is None:
             return False
         if reader.bit_depth == 8:
-            return reader._native.has_count8  # stale-.so degradation
+            return reader._native.has_count8  # the codec's 8-bit count pass
         return (
             reader.bit_depth in (10, 12, 16)
             and reader.row_nbytes is not None
@@ -496,11 +496,10 @@ class PhotonVideo:
         out: Optional[np.ndarray] = None,
     ):
         """Fused staging pass: band rows AND above-noise counts in ONE
-        sweep over the packed payload (``(band, counts, stopped)``, the
-        counts exact and ``stopped`` 0; ``None`` when the fused native
-        path is unavailable — callers fall back to :meth:`band_bytes` +
-        :meth:`count_above`). A capped count is the reader's
-        (``MRAWReader.band_bytes_and_counts``)."""
+        sweep over the packed payload (the two values ``(band, counts)``;
+        ``None`` when the fused native path is unavailable — callers then
+        stage by :meth:`frame_bytes` or :meth:`read_batch`). A capped count
+        is the reader's (``MRAWReader.band_bytes_and_capped_counts``)."""
         return self._require_reader().band_bytes_and_counts(
             start, stop, rows, background, threshold, out=out
         )

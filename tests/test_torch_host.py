@@ -69,6 +69,47 @@ def test_native_builds_into_the_port_build_dir():
     assert lib.name.startswith("libmraw_decode-")
 
 
+def test_native_build_follows_the_sources_digest(tmp_path, monkeypatch):
+    """A library without a stamp, or whose stamp is not the digest of the
+    current sources and g++ commands, is rebuilt from both sources, even
+    when its mtime is newer than theirs; one whose stamp matches is loaded
+    without a build."""
+    import os
+    import subprocess
+
+    real = port_native.build_library()
+    lib = tmp_path / real.name
+    stamp = lib.with_name(lib.name + ".sha256")
+    monkeypatch.setattr(port_native, "_BUILD_DIR", tmp_path)
+    monkeypatch.setattr(port_native, "_LIB", lib)
+    builds = []
+
+    def gxx(cmd, **kwargs):  # stands in for g++: "compiles" the real library
+        builds.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(real.read_bytes())
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(port_native.subprocess, "run", gxx)
+    newer = 3600 + max(port_native._SRC.stat().st_mtime,
+                       port_native._SRC_FITPACK.stat().st_mtime)
+    for stale_stamp in (None, "0" * 64):
+        lib.write_bytes(b"a library of older sources")
+        os.utime(lib, (newer, newer))
+        if stale_stamp is None:
+            stamp.unlink(missing_ok=True)
+        else:
+            stamp.write_text(stale_stamp + "\n")
+        n_builds = len(builds)
+        assert port_native.build_library() == lib
+        assert len(builds) == n_builds + 1
+        assert {str(port_native._SRC), str(port_native._SRC_FITPACK)} <= set(builds[-1])
+        assert stamp.read_text().strip() == port_native._digest()
+    decoder = port_native.NativeDecoder(port_native.build_library())
+    assert len(builds) == 2
+    assert decoder.count_path in ("avx512", "avx2", "scalar")
+    assert not list(tmp_path.glob("*.tmp*"))
+
+
 @pytest.mark.parametrize("depth", DEPTHS)
 def test_native_codec_matches(depth):
     """Fused band gather + counts and the count pass, byte for byte."""
@@ -84,9 +125,7 @@ def test_native_codec_matches(depth):
     for d in (jd, pd):
         assert d.has_gather_count
     jb, jc = jd.gather_rows_count(packed, fbytes, rows, row_nbytes, 100.0, 50.0, depth)
-    pb, pc, stopped = pd.gather_rows_count(packed, fbytes, rows, row_nbytes, 100.0, 50.0,
-                                           depth)
-    assert stopped == 0
+    pb, pc = pd.gather_rows_count(packed, fbytes, rows, row_nbytes, 100.0, 50.0, depth)
     np.testing.assert_array_equal(pb, jb)
     np.testing.assert_array_equal(pc, jc)
     np.testing.assert_array_equal(
@@ -166,7 +205,8 @@ def count_decoders(tmp_path_factory):
             continue
         lib = out / f"libmraw_decode-{march}.so"
         subprocess.run(["g++", "-O3", f"-march={march}", "-ffp-contract=off", "-shared",
-                        "-fPIC", "-fopenmp", str(port_native._SRC), "-o", str(lib)],
+                        "-fPIC", "-fopenmp", str(port_native._SRC),
+                        str(port_native._SRC_FITPACK), "-o", str(lib)],
                        check=True, capture_output=True)
         decoders[path] = port_native.NativeDecoder(lib)
         assert decoders[path].count_path == path
@@ -319,10 +359,13 @@ def test_capped_count_matches_the_exact_pass(count_decoders, tmp_path, depth, ca
     want, want_stopped = _capped_model(mask, band, cap)
     try:
         for name, d in count_decoders.items():
-            band_x, exact, none_stopped = d.gather_rows_count(
+            band_x, exact = d.gather_rows_count(
                 packed, fbytes, band * rnb, rnb, _CAP_BG, _CAP_THR, depth)
-            band_c, capped, stopped = d.gather_rows_count(
-                packed, fbytes, band * rnb, rnb, _CAP_BG, _CAP_THR, depth, cap=cap)
+            _band, _exact, none_stopped = d.gather_rows_capped_count(
+                packed, fbytes, band * rnb, rnb, _CAP_BG, _CAP_THR, depth,
+                np.iinfo(np.int32).max)
+            band_c, capped, stopped = d.gather_rows_capped_count(
+                packed, fbytes, band * rnb, rnb, _CAP_BG, _CAP_THR, depth, cap)
             assert none_stopped == 0, name
             np.testing.assert_array_equal(exact, mask.reshape(len(mask), -1).sum(1))
             np.testing.assert_array_equal(band_c, band_x, err_msg=name)
@@ -351,7 +394,7 @@ def test_fused_pass_refuses_rows_it_cannot_count(geometry):
 
 @pytest.mark.parametrize("depth", DEPTHS)
 def test_band_bytes_and_counts_with_a_cap(tmp_path, depth):
-    """The reader's fused pass: without a cap the exact pair, with one the
+    """The reader's fused pass: the exact pair, and its capped twin the
     same band, min(count, cap) and the frames that stopped early.
     PhotonVideo's pass, a copy of the original's, stays the exact one."""
     rng = np.random.default_rng(depth)
@@ -362,11 +405,13 @@ def test_band_bytes_and_counts_with_a_cap(tmp_path, depth):
     meta = port_io.write_recording(tmp_path, f"run-{depth}-001", frames, spec=spec)
     rows = np.arange(6, 11, dtype=np.int32)
     with hsip_tpu_torch.open_video(str(meta)) as v:
-        band, exact, none_stopped = v.band_bytes_and_counts(0, 9, rows, 10.0, 5.0)
+        band, exact = v.band_bytes_and_counts(0, 9, rows, 10.0, 5.0)
         reader = v._require_reader()
-        band_r, exact_r, _ = reader.band_bytes_and_counts(0, 9, rows, 10.0, 5.0)
-        band_c, capped, stopped = reader.band_bytes_and_counts(0, 9, rows, 10.0, 5.0,
-                                                               cap=40)
+        band_r, exact_r = reader.band_bytes_and_counts(0, 9, rows, 10.0, 5.0)
+        _band, _exact, none_stopped = reader.band_bytes_and_capped_counts(
+            0, 9, rows, 10.0, 5.0, np.iinfo(np.int32).max)
+        band_c, capped, stopped = reader.band_bytes_and_capped_counts(
+            0, 9, rows, 10.0, 5.0, 40)
     np.testing.assert_array_equal(band_r, band)
     np.testing.assert_array_equal(exact_r, exact)
     assert none_stopped == 0
@@ -374,6 +419,35 @@ def test_band_bytes_and_counts_with_a_cap(tmp_path, depth):
     np.testing.assert_array_equal(exact, _float_rule_counts(frames, 10.0, 5.0))
     np.testing.assert_array_equal(capped, np.minimum(exact, 40))
     assert stopped == int((exact[3:] >= 40).sum()) == 6
+
+
+@pytest.mark.parametrize("depth", DEPTHS)
+def test_uncapped_passes_return_the_references_pair(tmp_path, depth):
+    """The decoder's, the reader's and the video's uncapped fused passes
+    return what the JAX package's do: the same number of values, equal."""
+    frames = _frames(depth + 3, n=7, h=16, w=64, depth=depth)
+    spec = port_io.CihxSpec(width=64, height=16, total_frames=7,
+                            record_rate=100_000, bit_depth=depth)
+    meta = port_io.write_recording(tmp_path, f"run-{depth}-002", frames, spec=spec)
+    rows = np.arange(5, 12, dtype=np.int64)
+    packed = _pack(frames, depth)
+    fbytes = packed.size // 7
+    rnb = fbytes // 16
+    jd, pd = jax_native.native_decoder(), port_native.native_decoder()
+    with hsip_tpu_torch.open_video(str(meta)) as vp, hsip_tpu.open_video(str(meta)) as vj:
+        pairs = {
+            "decoder": (pd.gather_rows_count(packed, fbytes, rows * rnb, rnb, 40.0, 20.0, depth),
+                        jd.gather_rows_count(packed, fbytes, rows * rnb, rnb, 40.0, 20.0, depth)),
+            "reader": (vp._require_reader().band_bytes_and_counts(1, 7, rows, 40.0, 20.0),
+                       vj._require_reader().band_bytes_and_counts(1, 7, rows, 40.0, 20.0)),
+            "video": (vp.band_bytes_and_counts(1, 7, rows, 40.0, 20.0),
+                      vj.band_bytes_and_counts(1, 7, rows, 40.0, 20.0)),
+        }
+    for where, (port, ref) in pairs.items():
+        assert isinstance(port, tuple) and len(port) == len(ref) == 2, where
+        for got, want in zip(port, ref):
+            assert got.dtype == want.dtype, where
+            np.testing.assert_array_equal(got, want, err_msg=where)
 
 
 def test_empty_count_cap_is_the_least_non_empty_count():
@@ -493,8 +567,7 @@ def test_video_matches(flame_recording):
         np.testing.assert_array_equal(vp.read_batch(0, 4), vj.read_batch(0, 4))
         rows = np.arange(28, 37, dtype=np.int32)
         np.testing.assert_array_equal(vp.band_bytes(2, 9, rows), vj.band_bytes(2, 9, rows))
-        band_p, cnt_p, stopped = vp.band_bytes_and_counts(2, 9, rows, 60.0, 30.0)
-        assert stopped == 0
+        band_p, cnt_p = vp.band_bytes_and_counts(2, 9, rows, 60.0, 30.0)
         band_j, cnt_j = vj.band_bytes_and_counts(2, 9, rows, 60.0, 30.0)
         np.testing.assert_array_equal(band_p, band_j)
         np.testing.assert_array_equal(cnt_p, cnt_j)

@@ -681,11 +681,7 @@ def test_fused_stage_attribution(tmp_path):
     for key in ("read_gather", "h2d", "device_dispatch", "d2h", "tables"):
         assert key in stages, stages
     assert "clip_copy" not in stages
-    from hsip_tpu_torch._native import native_decoder
-
-    dec = native_decoder()
-    if dec is not None and dec.has_gather_count:
-        assert "counts_host" not in stages, stages
+    assert "counts_host" not in stages, stages
 
 
 def test_cpu_library_run_launches_no_kernel(tmp_path, monkeypatch):
